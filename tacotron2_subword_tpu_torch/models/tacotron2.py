@@ -1,0 +1,413 @@
+"""Dual-stream BERT-Tacotron 2, inference half, in PyTorch.
+
+Counterpart of ``tacotron2_subword_tpu/models/tacotron2.py``: two input
+streams (phone IDs and subword IDs), each with its own conv + BiLSTM encoder
+and its own attention, both conditioned on a BERT [CLS] vector, feeding one
+autoregressive mel decoder with a postnet residual.  Parameters are the
+JAX package's nested dicts, with the same keys and layouts.
+
+The decoder runs both streams as one stack (stream 0 = phones, 1 =
+subwords): the two attention LSTMs are one stacked cell and the subword
+memory is zero-padded to the phone stream's length and masked.  With
+``cfg.decode_quant == "int8"`` the LSTM weights are quantized once, after
+the cast to the compute dtype, and each step's two stacked LSTM matmuls run
+on the int8 kernel K1 (ops/quant.py).
+
+Free-running decode stops each sample on its own gate (the stop frame is
+included).  The loop reads "all finished" on the host only every
+SYNC_EVERY steps; the outputs are masked by each sample's length, so
+the steps run after the last sample stopped change nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from tacotron2_subword_tpu_torch.config import TacotronConfig
+from tacotron2_subword_tpu_torch.models import attention as A
+from tacotron2_subword_tpu_torch.nn import layers as L
+from tacotron2_subword_tpu_torch.utils.platform import resolve_device
+from tacotron2_subword_tpu_torch.utils.tree import (cast_floats, to_device,
+                                                     tree_stack)
+
+GATE_PAD_VALUE = 1e3
+SYNC_EVERY = 16  # decode steps between host reads of "all finished"
+PRENET_DROPOUT = 0.5
+
+
+def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] lengths -> [B, max_len] bool, True at valid positions."""
+    return (torch.arange(max_len, device=lengths.device)[None, :]
+            < lengths[:, None])
+
+
+def _compute_dtype(cfg: TacotronConfig) -> torch.dtype:
+    if cfg.parity_mode or cfg.compute_dtype == "float32":
+        return torch.float32
+    return getattr(torch, cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _encoder_init(gen, cfg: TacotronConfig):
+    convs, bns = [], []
+    E = cfg.encoder_embedding_dim
+    for _ in range(cfg.encoder_n_convolutions):
+        bn_p, bn_s = L.batchnorm_init(E)
+        convs.append({"conv": L.conv1d_init(gen, E, E, cfg.encoder_kernel_size,
+                                            gain="relu"),
+                      "bn": bn_p})
+        bns.append(bn_s)
+    return {"convs": convs, "lstm": L.bilstm_init(gen, E, E // 2)}, bns
+
+
+def _postnet_init(gen, cfg: TacotronConfig):
+    n = cfg.postnet_n_convolutions
+    layers, bns = [], []
+    for i in range(n):
+        in_ch = cfg.n_mel_channels if i == 0 else cfg.postnet_embedding_dim
+        out_ch = (cfg.n_mel_channels if i == n - 1
+                  else cfg.postnet_embedding_dim)
+        conv = L.conv1d_init(gen, in_ch, out_ch, cfg.postnet_kernel_size,
+                             gain="linear" if i == n - 1 else "tanh")
+        bn_p, bn_s = L.batchnorm_init(out_ch)
+        layers.append({"conv": conv, "bn": bn_p})
+        bns.append(bn_s)
+    return layers, bns
+
+
+def _prenet_init(gen, cfg: TacotronConfig):
+    return [L.linear_init(gen, cfg.n_mel_channels * cfg.n_frames_per_step,
+                          cfg.prenet_dim, bias=False),
+            L.linear_init(gen, cfg.prenet_dim, cfg.prenet_dim, bias=False)]
+
+
+def _decoder_init(gen, cfg: TacotronConfig):
+    E, Ar = cfg.encoder_embedding_dim, cfg.attention_rnn_dim
+    attn = lambda: A.attention_init(gen, cfg.attention, Ar, E,
+                                    cfg.attention_dim)
+    hidden_ctx = cfg.decoder_rnn_dim + 2 * E
+    return {
+        "prenet": _prenet_init(gen, cfg),
+        "prenet_bert": _prenet_init(gen, cfg),
+        "attention_rnn": L.lstm_cell_init(gen, cfg.prenet_dim + E, Ar),
+        "attention_rnn_bert": L.lstm_cell_init(gen, cfg.prenet_dim + E, Ar),
+        "attention": attn(),
+        "attention_bert": attn(),
+        "decoder_rnn": L.lstm_cell_init(gen, 2 * Ar + 2 * E,
+                                        cfg.decoder_rnn_dim),
+        "linear_projection": L.linear_init(
+            gen, hidden_ctx, cfg.n_mel_channels * cfg.n_frames_per_step),
+        "gate_layer": L.linear_init(gen, hidden_ctx, 1, gain="sigmoid"),
+    }
+
+
+def init_tacotron2(generator: torch.Generator, cfg: TacotronConfig,
+                   device="cuda"):
+    """Random (params, bn_state) from the reference's distributions.
+
+    ``generator`` is a CPU generator: the weights are drawn on the host and
+    then moved to ``device``, so one seed gives the same weights on every
+    device."""
+    device = resolve_device(device)
+    # reference quirk kept: the subword table reuses the phone table's bound
+    std = (2.0 / (cfg.n_symbols + cfg.symbols_embedding_dim)) ** 0.5
+    val = (3.0 ** 0.5) * std
+    emb = L.uniform(generator, (cfg.n_symbols, cfg.symbols_embedding_dim),
+                    val)
+    emb_sub = L.uniform(generator,
+                        (cfg.sub_n_symbols, cfg.symbols_embedding_dim), val)
+    enc, enc_bn = _encoder_init(generator, cfg)
+    enc_sub, enc_sub_bn = _encoder_init(generator, cfg)
+    conv_in = cfg.encoder_embedding_dim + cfg.bert_embedding_dim
+    params = {
+        "embedding": emb,
+        "embedding_sub": emb_sub,
+        "encoder": enc,
+        "encoder_sub": enc_sub,
+        "linear_converter": L.linear_init(generator, conv_in,
+                                          cfg.encoder_embedding_dim),
+        "linear_converter_sub": L.linear_init(generator, conv_in,
+                                              cfg.encoder_embedding_dim),
+        "decoder": _decoder_init(generator, cfg),
+    }
+    params["postnet"], post_bn = _postnet_init(generator, cfg)
+    bn_state = {"encoder": enc_bn, "encoder_sub": enc_sub_bn,
+                "postnet": post_bn}
+    return to_device(params, device), to_device(bn_state, device)
+
+
+# ---------------------------------------------------------------------------
+# Sub-modules (eval)
+# ---------------------------------------------------------------------------
+
+def encoder_apply(params, bn_state, x: torch.Tensor,
+                  lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """x [B, C, T] embedded inputs -> [B, T, C]: 3x conv/BN/ReLU, then the
+    length-exact BiLSTM."""
+    for i, layer in enumerate(params["convs"]):
+        y = L.conv1d_apply(layer["conv"], x)
+        x = torch.relu(L.batchnorm_apply(layer["bn"], bn_state[i], y))
+    return L.bilstm_apply(params["lstm"], x.transpose(1, 2), lengths)
+
+
+def prenet_apply(params, x: torch.Tensor, masks=None) -> torch.Tensor:
+    """2x (linear -> ReLU -> dropout 0.5).  ``masks`` gives one scaled
+    keep-mask per layer (the reference keeps this dropout on even in
+    inference); None means no dropout."""
+    for i, p in enumerate(params):
+        x = torch.relu(L.linear_apply(p, x))
+        if masks is not None:
+            x = x * masks[i]
+    return x
+
+
+def _prenet_masks(generator, n: int, shape, dtype, device) -> torch.Tensor:
+    """n scaled keep-masks [n, *shape] in one draw."""
+    keep = 1.0 - PRENET_DROPOUT
+    m = torch.rand((n, *shape), generator=generator, device=device) < keep
+    return m.to(dtype) / keep
+
+
+def postnet_apply(params, bn_state, x: torch.Tensor) -> torch.Tensor:
+    """x [B, n_mels, T] -> residual [B, n_mels, T]: 5 convs with BN, tanh on
+    all but the last."""
+    n = len(params)
+    for i, layer in enumerate(params):
+        y = L.batchnorm_apply(layer["bn"], bn_state[i],
+                              L.conv1d_apply(layer["conv"], x))
+        x = torch.tanh(y) if i < n - 1 else y
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+class DecoderCarry(NamedTuple):
+    """Decoder state, the two attention streams stacked on axis 0."""
+    h_att: torch.Tensor      # [2, B, attention_rnn_dim]
+    c_att: torch.Tensor      # [2, B, attention_rnn_dim]
+    h_dec: torch.Tensor      # [B, decoder_rnn_dim]
+    c_dec: torch.Tensor      # [B, decoder_rnn_dim]
+    ctx: torch.Tensor        # [2, B, encoder_embedding_dim]
+    # SMA's state; the location-based variants (not ported yet) will add
+    # the previous and cumulative weights here
+    att_state: Dict[str, torch.Tensor]  # leaves stacked on axis 0
+
+
+def _stack_stream_params(dp, quant: str = ""):
+    """(attention LSTMs stacked and prepared, attention params stacked,
+    decoder LSTM prepared); with ``quant="int8"`` both LSTM weights are
+    quantized (the decoder LSTM as a stack of one)."""
+    rnn_s = tree_stack([L.lstm_prepare(dp["attention_rnn"]),
+                        L.lstm_prepare(dp["attention_rnn_bert"])])
+    att_s = tree_stack([dp["attention"], dp["attention_bert"]])
+    dec = L.lstm_prepare(dp["decoder_rnn"])
+    if quant == "int8":
+        rnn_s = L.lstm_quantize_stacked(rnn_s)
+        dec = L.lstm_quantize_stacked({k: v[None] for k, v in dec.items()})
+    elif quant:
+        raise ValueError(f"unknown decode_quant {quant!r}")
+    return rnn_s, att_s, dec
+
+
+def _pad_T(x: torch.Tensor, T: int, axis: int = -1) -> torch.Tensor:
+    """Zero-pad ``axis`` of x up to length T."""
+    extra = T - x.shape[axis]
+    if extra <= 0:
+        return x
+    axis = axis % x.dim()
+    return F.pad(x, [0, 0] * (x.dim() - 1 - axis) + [0, extra])
+
+
+def _decoder_carry_init(cfg: TacotronConfig, B: int, T: int, dtype,
+                        device) -> DecoderCarry:
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
+    state0 = A.init_state(cfg.attention, B, T, device=device)
+    return DecoderCarry(
+        h_att=z(2, B, cfg.attention_rnn_dim),
+        c_att=z(2, B, cfg.attention_rnn_dim),
+        h_dec=z(B, cfg.decoder_rnn_dim), c_dec=z(B, cfg.decoder_rnn_dim),
+        ctx=z(2, B, cfg.encoder_embedding_dim),
+        att_state={k: torch.stack([v, v]).to(dtype)
+                   for k, v in state0.items()})
+
+
+def _decode_step(rnn_s, att_s, dec_rnn, cfg: TacotronConfig,
+                 carry: DecoderCarry, pre_ts, memory_s, proc_mem_s, mask_s):
+    """One inference step with both streams stacked.  pre_ts [2, B, P]
+    prenet outputs; memory_s/proc_mem_s [2, B, T, .]; mask_s [2, B, T].
+    Returns (new carry, hidden_ctx [B, dec + 2*embed], weights [2, B, T])."""
+    att_in = torch.cat([pre_ts, carry.ctx], dim=-1)
+    if "w_q" in rnn_s:
+        h_att, c_att = L.lstm_cell_quant_stacked(rnn_s, att_in, carry.h_att,
+                                                 carry.c_att)
+    else:
+        h_att, c_att = L.lstm_cell_prepared(rnn_s, att_in, carry.h_att,
+                                            carry.c_att)
+    ctx, w, att_state = A.attention_step(cfg.attention, att_s, h_att,
+                                         memory_s, proc_mem_s, mask_s,
+                                         carry.att_state)
+    # reference concat order: h_phone, ctx_phone, h_bert, ctx_bert
+    dec_in = torch.cat([h_att[0], ctx[0], h_att[1], ctx[1]], dim=-1)
+    if "w_q" in dec_rnn:
+        h1, c1 = L.lstm_cell_quant_stacked(dec_rnn, dec_in[None],
+                                           carry.h_dec[None],
+                                           carry.c_dec[None])
+        h_dec, c_dec = h1[0], c1[0]
+    else:
+        h_dec, c_dec = L.lstm_cell_prepared(dec_rnn, dec_in, carry.h_dec,
+                                            carry.c_dec)
+    hidden_ctx = torch.cat([h_dec, ctx[0], ctx[1]], dim=-1)
+    new_carry = DecoderCarry(h_att=h_att, c_att=c_att, h_dec=h_dec,
+                             c_dec=c_dec, ctx=ctx, att_state=att_state)
+    return new_carry, hidden_ctx, w
+
+
+def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
+                  memory_b: torch.Tensor, *,
+                  generator: Optional[torch.Generator] = None,
+                  max_steps: Optional[int] = None,
+                  gate_threshold: Optional[float] = None,
+                  text_lengths: Optional[torch.Tensor] = None,
+                  sub_lengths: Optional[torch.Tensor] = None):
+    """Free-running decode with per-sample gate stop.
+
+    Returns mel [B, n_mels, S*r], gate [B, S], alignments [B, S, T_text],
+    alignments_bert [B, S, T_sub], mel_lengths [B] (frames), infer_ok [B]
+    (False where max steps was hit) and steps_run (decoder steps executed,
+    an int), where S = max_steps and r = n_frames_per_step.  With
+    ``cfg.prenet_dropout_always_on`` the prenet masks come from
+    ``generator``, which must live on memory's device."""
+    S = int(max_steps or cfg.max_decoder_steps)
+    thresh = cfg.gate_threshold if gate_threshold is None else gate_threshold
+    B, dev = memory.shape[0], memory.device
+    M, r = cfg.n_mel_channels, cfg.n_frames_per_step
+    if cfg.prenet_dropout_always_on and generator is None:
+        raise ValueError("prenet dropout is on: pass a torch.Generator")
+
+    dtype = _compute_dtype(cfg)
+    dp = cast_floats(dp, dtype)
+    memory, memory_b = memory.to(dtype), memory_b.to(dtype)
+    T_text, T_sub = memory.shape[1], memory_b.shape[1]
+    T = max(T_text, T_sub)
+    rnn_s, att_s, dec_rnn = _stack_stream_params(dp, cfg.decode_quant)
+    memory_s = torch.stack([_pad_T(memory, T, axis=1),
+                            _pad_T(memory_b, T, axis=1)])
+    proc_mem_s = torch.stack([
+        _pad_T(A.process_memory(dp["attention"], memory), T, axis=1),
+        _pad_T(A.process_memory(dp["attention_bert"], memory_b), T, axis=1)])
+    if text_lengths is None:
+        # unmasked inference; the padded slots of the stack are masked
+        text_lengths = torch.full((B,), T_text, device=dev)
+        sub_lengths = torch.full((B,), T_sub, device=dev)
+    mask_s = torch.stack([sequence_mask(text_lengths.to(dev), T),
+                          sequence_mask(sub_lengths.to(dev), T)])
+
+    carry = _decoder_carry_init(cfg, B, T, dtype, dev)
+    mel_buf = torch.zeros((S, B, M * r), dtype=dtype, device=dev)
+    gate_buf = torch.full((S, B), GATE_PAD_VALUE, dtype=dtype, device=dev)
+    align_buf = torch.zeros((S, 2, B, T), dtype=dtype, device=dev)
+    finished = torch.zeros(B, dtype=torch.bool, device=dev)
+    lengths = torch.zeros(B, dtype=torch.long, device=dev)
+    prev = torch.zeros((B, M * r), dtype=dtype, device=dev)
+
+    steps_run = 0
+    for t in range(S):
+        if cfg.prenet_dropout_always_on:
+            m = _prenet_masks(generator, 4, (B, cfg.prenet_dim), dtype, dev)
+            masks, masks_b = (m[0], m[1]), (m[2], m[3])
+        else:
+            masks = masks_b = None
+        pre_ts = torch.stack([prenet_apply(dp["prenet"], prev, masks),
+                              prenet_apply(dp["prenet_bert"], prev, masks_b)])
+        carry, hidden_ctx, w_s = _decode_step(
+            rnn_s, att_s, dec_rnn, cfg, carry, pre_ts, memory_s, proc_mem_s,
+            mask_s)
+        mel_t = L.linear_apply(dp["linear_projection"], hidden_ctx)
+        gate_t = L.linear_apply(dp["gate_layer"], hidden_ctx)[..., 0]
+        mel_buf[t] = mel_t
+        gate_buf[t] = gate_t
+        align_buf[t] = w_s
+        fired = torch.sigmoid(gate_t) > thresh
+        # the stop frame is included
+        lengths = lengths.masked_fill(fired & ~finished, t + 1)
+        finished = finished | fired
+        prev = mel_t
+        steps_run = t + 1
+        if steps_run % SYNC_EVERY == 0 and bool(finished.all()):
+            break
+
+    # samples that never fired ran to max steps (infer_ok False)
+    step_lengths = torch.where(finished, lengths,
+                               torch.full_like(lengths, steps_run))
+    valid = sequence_mask(step_lengths, S)                 # [B, S]
+    frame_valid = valid.repeat_interleave(r, dim=1)        # [B, S*r]
+    mel_frames = mel_buf.permute(1, 0, 2).reshape(B, S * r, M)
+    mel = (mel_frames.transpose(1, 2) * frame_valid[:, None, :]).float()
+    gate = torch.where(valid, gate_buf.t().float(),
+                       torch.full_like(valid, GATE_PAD_VALUE,
+                                       dtype=torch.float32))
+    vf = valid[:, :, None].float()
+    return {
+        "mel": mel,
+        "gate": gate,
+        "alignments": align_buf[:, 0, :, :T_text].permute(1, 0, 2).float() * vf,
+        "alignments_bert": (align_buf[:, 1, :, :T_sub].permute(1, 0, 2).float()
+                            * vf),
+        "mel_lengths": step_lengths * r,
+        "infer_ok": finished,
+        "steps_run": steps_run,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+def _encode_stream(params, bn_state, emb_table, ids, lengths, cls, converter,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """embedding -> encoder -> concat [CLS] -> linear converter -> memory
+    [B, T, encoder_embedding_dim], in ``dtype``."""
+    params = cast_floats(params, dtype)
+    emb = L.embedding_apply(emb_table.to(dtype), ids)      # [B, T, C]
+    enc = encoder_apply(params, bn_state, emb.transpose(1, 2), lengths)
+    if cls.dim() == 2:
+        cls = cls[:, None, :].expand(-1, enc.shape[1], -1)
+    fused = torch.cat([enc, cls.to(enc.dtype)], dim=-1)
+    return L.linear_apply(cast_floats(converter, dtype), fused)
+
+
+@torch.inference_mode()
+def infer(params, bn_state, cfg: TacotronConfig, text, sub, cls_phone,
+          cls_sub, *, generator: Optional[torch.Generator] = None,
+          max_steps: Optional[int] = None,
+          gate_threshold: Optional[float] = None,
+          text_lengths=None, sub_lengths=None):
+    """Free-running inference: IDs [B, T_text] / [B, T_sub] and [CLS]
+    vectors [B, 768] (or per-token [B, T, 768]) -> decoder_infer's outputs
+    plus mel_postnet [B, n_mels, S*r].  All inputs on one device; optional
+    lengths make padded batches exact."""
+    dtype = _compute_dtype(cfg)
+    memory = _encode_stream(params["encoder"], bn_state["encoder"],
+                            params["embedding"], text, text_lengths,
+                            cls_phone, params["linear_converter"], dtype)
+    memory_b = _encode_stream(params["encoder_sub"], bn_state["encoder_sub"],
+                              params["embedding_sub"], sub, sub_lengths,
+                              cls_sub, params["linear_converter_sub"], dtype)
+    out = decoder_infer(params["decoder"], cfg, memory, memory_b,
+                        generator=generator, max_steps=max_steps,
+                        gate_threshold=gate_threshold,
+                        text_lengths=text_lengths, sub_lengths=sub_lengths)
+    residual = postnet_apply(cast_floats(params["postnet"], dtype),
+                             bn_state["postnet"], out["mel"].to(dtype))
+    valid = sequence_mask(out["mel_lengths"], out["mel"].shape[-1])
+    out["mel_postnet"] = ((out["mel"] + residual.float())
+                          * valid[:, None, :])
+    return out

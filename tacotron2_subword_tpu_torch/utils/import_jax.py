@@ -1,0 +1,96 @@
+"""Weight bridge: the JAX package's parameter trees -> the port's tensors.
+
+Both packages keep one set of layouts, so the bridge moves arrays and checks
+shapes; it transposes nothing.  It takes the JAX pytrees as nested dicts and
+lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and
+needs no JAX itself.
+
+Layout rules (shared by both packages):
+ - Linear: ``w`` [in, out], ``b`` [out]  (y = x @ w + b; torch's nn.Linear
+   stores [out, in]);
+ - Conv1d: ``w`` OIH [out, in, k], ``b`` [out], activations NCH;
+ - ConvTranspose1d: ``w`` [in, out, k] as torch;
+ - LSTM cell: ``w_ih`` [4H, in], ``w_hh`` [4H, H], ``b_ih`` / ``b_hh`` [4H],
+   gate order (i, f, g, o) as torch;
+ - BatchNorm: params ``scale`` / ``bias``, state ``mean`` / ``var``;
+ - weight norm: ``v`` and ``g`` (norm over every dim but 0), or a fused ``w``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tacotron2_subword_tpu_torch.config import TacotronConfig
+from tacotron2_subword_tpu_torch.models.hifigan import HifiganConfig
+from tacotron2_subword_tpu_torch.utils.platform import resolve_device
+from tacotron2_subword_tpu_torch.utils.tree import tree_map
+
+
+def _tensors(tree, device):
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return tree_map(conv, tree)
+
+
+def _expect(name: str, t: torch.Tensor, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)} (see the layout rules)")
+
+
+def tacotron2_params_from_numpy(params, bn_state, cfg: TacotronConfig,
+                                device="cuda"):
+    """(params, bn_state) of the JAX package, as numpy trees -> the port's
+    (params, bn_state) on ``device``, with the layouts checked against
+    ``cfg``."""
+    device = resolve_device(device)
+    p, bn = _tensors(params, device), _tensors(bn_state, device)
+    E, D = cfg.encoder_embedding_dim, cfg.symbols_embedding_dim
+    Ar, Dr = cfg.attention_rnn_dim, cfg.decoder_rnn_dim
+    _expect("embedding", p["embedding"], (cfg.n_symbols, D))
+    _expect("embedding_sub", p["embedding_sub"], (cfg.sub_n_symbols, D))
+    for enc in ("encoder", "encoder_sub"):
+        conv = p[enc]["convs"][0]["conv"]["w"]
+        _expect(f"{enc}.convs.0.conv.w", conv,
+                (E, D, cfg.encoder_kernel_size))
+        _expect(f"{enc}.lstm.fwd.w_ih", p[enc]["lstm"]["fwd"]["w_ih"],
+                (4 * (E // 2), E))
+    for conv in ("linear_converter", "linear_converter_sub"):
+        _expect(f"{conv}.w", p[conv]["w"], (E + cfg.bert_embedding_dim, E))
+    dp = p["decoder"]
+    for rnn in ("attention_rnn", "attention_rnn_bert"):
+        _expect(f"decoder.{rnn}.w_ih", dp[rnn]["w_ih"],
+                (4 * Ar, cfg.prenet_dim + E))
+    _expect("decoder.decoder_rnn.w_ih", dp["decoder_rnn"]["w_ih"],
+            (4 * Dr, 2 * Ar + 2 * E))
+    _expect("decoder.linear_projection.w", dp["linear_projection"]["w"],
+            (Dr + 2 * E, cfg.n_mel_channels * cfg.n_frames_per_step))
+    _expect("decoder.attention.query.w", dp["attention"]["query"]["w"],
+            (Ar, cfg.attention_dim))
+    _expect("postnet.0.conv.w", p["postnet"][0]["conv"]["w"],
+            (cfg.postnet_embedding_dim, cfg.n_mel_channels,
+             cfg.postnet_kernel_size))
+    return p, bn
+
+
+def hifigan_params_from_numpy(params, h: HifiganConfig, device="cuda"):
+    """HiFi-GAN generator params of the JAX package (weight-normed or
+    fused), as a numpy tree -> the port's params on ``device``."""
+    device = resolve_device(device)
+    p = _tensors(params, device)
+    pre = p["conv_pre"]
+    w = pre["w"] if "w" in pre else pre["v"]
+    _expect("conv_pre", w, (h.upsample_initial_channel, h.num_mels, 7))
+    for i, k in enumerate(h.upsample_kernel_sizes):
+        up = p["ups"][i]
+        w = up["w"] if "w" in up else up["v"]
+        _expect(f"ups.{i}", w, (h.upsample_initial_channel // 2 ** i,
+                                h.upsample_initial_channel // 2 ** (i + 1), k))
+    n_rb = len(h.upsample_rates) * len(h.resblock_kernel_sizes)
+    if len(p["resblocks"]) != n_rb:
+        raise ValueError(f"resblocks: {len(p['resblocks'])}, expected {n_rb}")
+    return p

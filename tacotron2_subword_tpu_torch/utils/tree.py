@@ -1,0 +1,35 @@
+"""Maps over nested dicts/lists/tuples of tensors (the parameter trees)."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import torch
+
+
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """Apply ``fn`` to every leaf of ``tree`` (and the matching leaves of
+    the trees in ``rest``, which share its structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_stack(trees: Sequence) -> Any:
+    """Stack the matching leaves of several same-structure trees on a new
+    leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def cast_floats(tree, dtype: torch.dtype):
+    """Cast every floating tensor of ``tree`` to ``dtype``."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    tree)
+
+
+def to_device(tree, device):
+    return tree_map(lambda t: t.to(device), tree)

@@ -1,0 +1,79 @@
+"""The port's kernels against their plain versions.  Imports no JAX, so it
+also runs on a machine with a card and without JAX:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+The tests marked ``cuda`` build and launch the CUDA kernels and skip where
+there is no CUDA device."""
+
+import numpy as np
+import pytest
+import torch
+
+from tacotron2_subword_tpu_torch.ops import quant as TQ
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(S, B, K, N, x_dtype, seed, device="cpu"):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(S, B, K).astype(np.float32)).to(x_dtype)
+    w = torch.from_numpy(rng.randn(S, K, N).astype(np.float32))
+    w_q, scale = TQ.quantize_int8(w, axis=1)
+    return x.to(device), w_q.to(device), scale.to(device)
+
+
+def _numpy_ref(x, w_q, scale):
+    y = np.einsum("sbk,skn->sbn", x.float().cpu().numpy().astype(np.float64),
+                  w_q.cpu().numpy().astype(np.float64))
+    return y * scale.cpu().numpy()[:, None, :]
+
+
+@pytest.mark.parametrize("S,B,K,N", [(2, 3, 46, 80), (1, 5, 37, 83),
+                                     (3, 1, 1, 1)])
+def test_plain_matches_float64_sum(S, B, K, N):
+    """f32 sums of exact products against a float64 sum: 1e-5 relative."""
+    x, w_q, scale = _inputs(S, B, K, N, torch.bfloat16, seed=0)
+    y = TQ.matmul_dequant_int8(x, w_q, scale)
+    ref = _numpy_ref(x, w_q, scale)
+    assert y.shape == (S, B, N) and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("bad", ["x_dtype", "w_dtype", "shape", "rank"])
+def test_wrapper_rejects_bad_arguments(bad):
+    x, w_q, scale = _inputs(2, 3, 8, 16, torch.float32, seed=1)
+    if bad == "x_dtype":
+        x = x.to(torch.float16)
+    elif bad == "w_dtype":
+        w_q = w_q.to(torch.int16)
+    elif bad == "shape":
+        scale = scale[:, :-1]
+    else:
+        x = x[0]
+    with pytest.raises((TypeError, ValueError)):
+        TQ.matmul_dequant_int8(x, w_q, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,B,K,N", [(2, 4, 1792, 4096), (1, 4, 4096, 4096),
+                                     (2, 3, 46, 80), (1, 5, 37, 83)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_k1_matches_plain_on_card(cuda_device, S, B, K, N, x_dtype):
+    """K1 and the plain version sum the same f32 products in another order:
+    max|d| <= 1e-4 * max|ref| (f32 x), 2e-3 * max|ref| (bf16 x)."""
+    x, w_q, scale = _inputs(S, B, K, N, x_dtype, seed=2, device=cuda_device)
+    before = TQ.launches
+    y = TQ.matmul_dequant_int8(x, w_q, scale)
+    ref = TQ.matmul_dequant_int8_plain(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert TQ.launches == before + 1
+    tol = (1e-4 if x_dtype == torch.float32 else 2e-3) * ref.abs().max()
+    assert (y - ref).abs().max() <= tol
