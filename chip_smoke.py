@@ -4,13 +4,21 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  It builds every kernel of
-the port from ``tacotron2_subword_tpu_torch/csrc``, holds each kernel against
-its plain torch version on the card, serves a few requests through the
-port's main path (int8 decode -> postnet -> HiFi-GAN) at full width, checks
-the kernel's launch count, and compares the whole decode on the card with
-the same decode on the CPU.  Any failure raises, so the exit code is not 0.
-The last line is one JSON object naming the device.  Without a card it
-exits with code 2 and prints no result.
+the port from ``tacotron2_subword_tpu_torch/csrc`` and drives both paths of
+the port at full width:
+
+ - serving: K1 against its plain version, 4 requests served (int8 decode
+   -> postnet -> HiFi-GAN) with K1's launches counted, a profile of the
+   decode loop, the f32 decode on the card against the CPU, and the cost of
+   the f32 LSTM gates on the non-quantized bf16 decode;
+ - training: K2 and K3 against their plain versions (bit-equal across two
+   runs), the soft-DTW train step (B=8, T_out=128, bench.py's batch) with
+   K2's and K3's launches counted, a profile of one step, one f32 train step
+   on the card against the CPU, and the training CLI up to validation.
+
+Any failure raises, so the exit code is not 0.  The line before the last
+names the card and its power limit; the last is one JSON object naming the
+device.  Without a card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -141,6 +149,89 @@ def library_call(x, w_q, scale):
     return fn, "torch._weight_int8pack_mm x S"
 
 
+# Transcendental rate of an H100 SXM: 132 SMs x 16 SFU results per clock
+# (4 per SM sub-partition) x 1.98 GHz boost clock.
+SFU_RATE = 132 * 16 * 1.98e9
+
+# (B, N, M), bandwidth: the slice's shapes (8 x 128 x 128 from bench.py's
+# train workload, 8 x 256 x 256 from the CLI's 256-frame bucket), ragged
+# N != M, bands, N > 1024 (threads loop over rows) and degenerate edges
+SDTW_CASES = [((8, 128, 128), 0.0), ((8, 256, 256), 0.0),
+              ((3, 17, 15), 0.0), ((2, 20, 30), 0.0), ((2, 20, 30), 12.0),
+              ((2, 24, 24), 5.0), ((2, 9, 9), 2.0), ((5, 33, 47), 0.0),
+              ((1, 1100, 900), 0.0), ((1, 1, 1), 0.0), ((2, 1, 7), 0.0),
+              ((2, 7, 1), 0.0)]
+
+
+def sdtw_bound_ms(B, N, M, bandwidth, grad: bool):
+    """Least time for one K2 (grad) or K3 call: D read once (and E written
+    once for K2) at the HBM rate, or the transcendentals of the live cells
+    (3 exp + 1 log forward, 3 exp backward) at the SFU rate."""
+    from tacotron2_subword_tpu_torch.ops.softdtw import band_mask
+    live = B * int(band_mask(N, M, bandwidth).sum())
+    nbytes = B * N * M * 4 * (2 if grad else 1) + B * 4
+    t_bytes, t_ops = nbytes / HBM_BW, live * (7 if grad else 4) / SFU_RATE
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_softdtw(SD, dev):
+    """K2 and K3 against their plain versions, each kernel run twice and
+    required bit-equal (a missing barrier shows as run-to-run drift).
+    Tolerances: both sides do the same f32 operations in the same order, so
+    only the exp/log of the two builds may differ: |d value| <= 1e-5 *
+    max(1, |value|), |d E| <= 1e-5; E is exactly 0 outside the band."""
+    rows = []
+    for (B, N, M), bw in SDTW_CASES:
+        gen = torch.Generator(device=dev).manual_seed(B * 1000 + N + M)
+        dim = 80 if N >= 128 else 2   # mel frames at the slice's shapes
+        x = torch.randn((B, N, dim), generator=gen, device=dev)
+        y = torch.randn((B, M, dim), generator=gen, device=dev)
+        D = SD.euclidean_dist_matrix(x, y).contiguous()
+        v2, E2 = SD.softdtw_grad(D, 1.0, bw)
+        v2b, E2b = SD.softdtw_grad(D, 1.0, bw)
+        v3 = SD.softdtw_value(D, 1.0, bw)
+        v3b = SD.softdtw_value(D, 1.0, bw)
+        pv, pE = SD.softdtw_grad_plain(D, 1.0, bw)
+        pv3 = SD.softdtw_value_plain(D, 1.0, bw)
+        torch.cuda.synchronize()
+        if not (torch.equal(v2, v2b) and torch.equal(E2, E2b)
+                and torch.equal(v3, v3b)):
+            raise AssertionError(f"soft-DTW kernels not deterministic at "
+                                 f"{(B, N, M)} bw={bw}")
+        vtol = 1e-5 * torch.clamp_min(pv.abs(), 1.0)
+        errs = {"k2_value": (v2 - pv).abs().max().item(),
+                "k2_E": (E2 - pE).abs().max().item(),
+                "k3_value": (v3 - pv3).abs().max().item()}
+        banned = ~SD.band_mask(N, M, bw, dev)
+        banned_zero = bool((E2[:, banned] == 0).all())
+        if not (((v2 - pv).abs() <= vtol).all()
+                and ((v3 - pv3).abs() <= vtol).all()
+                and errs["k2_E"] <= 1e-5 and torch.isfinite(E2).all()
+                and banned_zero):
+            raise AssertionError(f"soft-DTW kernels disagree at {(B, N, M)} "
+                                 f"bw={bw}: {errs}")
+        row = {"B": B, "N": N, "M": M, "bandwidth": bw, **errs,
+               "value_max": pv.abs().max().item()}
+        if N >= 128 and N == M and B == 8:
+            P = N + M - 1
+            row["k2_ms"] = device_ms(lambda: SD.softdtw_grad(D, 1.0, bw), 20)
+            row["k2_plain_ms"] = device_ms(
+                lambda: SD.softdtw_grad_plain(D, 1.0, bw), 2)
+            row["k2_bound_ms"], row["k2_bound_by"] = sdtw_bound_ms(
+                B, N, M, bw, True)
+            row["k2_serial_diagonals"] = 2 * P
+            row["k3_ms"] = device_ms(lambda: SD.softdtw_value(D, 1.0, bw), 20)
+            row["k3_plain_ms"] = device_ms(
+                lambda: SD.softdtw_value_plain(D, 1.0, bw), 2)
+            row["k3_bound_ms"], row["k3_bound_by"] = sdtw_bound_ms(
+                B, N, M, bw, False)
+            row["k3_serial_diagonals"] = P
+        rows.append(row)
+        print("softdtw", json.dumps(row))
+    return rows
+
+
 REQUESTS = ((64, 32), (48, 24), (33, 17), (17, 9))  # phone / subword ids
 
 
@@ -225,10 +316,11 @@ def phase_profile(TM, TI, params, bn, cfg, dev):
             make_requests(cfg, lengths, seed=7), dev)
         dtype = TM._compute_dtype(cfg)
         with torch.inference_mode():
-            mem = TM._encode_stream(params["encoder"], bn["encoder"],
-                                    params["embedding"], text, t_len, cls_p,
-                                    params["linear_converter"], dtype)
-            mem_b = TM._encode_stream(
+            mem, _ = TM._encode_stream(params["encoder"], bn["encoder"],
+                                       params["embedding"], text, t_len,
+                                       cls_p, params["linear_converter"],
+                                       dtype)
+            mem_b, _ = TM._encode_stream(
                 params["encoder_sub"], bn["encoder_sub"],
                 params["embedding_sub"], sub, s_len, cls_s,
                 params["linear_converter_sub"], dtype)
@@ -296,6 +388,250 @@ def phase_whole_path(TM, TI, params_cpu, bn_cpu, cfg, dev):
     return errs
 
 
+TRAIN_B, TRAIN_T_OUT, TRAIN_T_TEXT, TRAIN_T_SUB = 8, 128, 64, 32
+TRAIN_STEPS = 3
+
+
+def train_batch(cfg, dev, B=TRAIN_B, t_out=TRAIN_T_OUT, T_text=TRAIN_T_TEXT,
+                T_sub=TRAIN_T_SUB, seed=0):
+    """bench.py's train batch (run_train): the same draws from
+    RandomState(seed) in the same order; ids as int64 on ``dev``."""
+    from tacotron2_subword_tpu_torch.train_lib import make_gate_target
+    rng = np.random.RandomState(seed)
+    lengths = lambda T: np.clip(rng.randint(T // 2, T + 1, B), 2, T)
+    b = {"text": rng.randint(0, cfg.n_symbols, (B, T_text)),
+         "text_lengths": lengths(T_text),
+         "sub": rng.randint(0, cfg.sub_n_symbols, (B, T_sub)),
+         "sub_lengths": lengths(T_sub),
+         "mels": rng.randn(B, cfg.n_mel_channels, t_out).astype(np.float32),
+         "output_lengths": lengths(t_out),
+         "cls_phone": rng.randn(B, cfg.bert_embedding_dim).astype(np.float32),
+         "cls_sub": rng.randn(B, cfg.bert_embedding_dim).astype(np.float32)}
+    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    for k in ("text", "sub", "text_lengths", "sub_lengths", "output_lengths"):
+        b[k] = b[k].long()
+    b["gate_target"] = make_gate_target(b["output_lengths"], t_out)
+    return b
+
+
+def phase_train(TT, SD, cfg, dev, gpu):
+    """The training path at full width with the soft-DTW loss on: one
+    warm-up train step, then TRAIN_STEPS timed steps and one eval step with
+    K2's and K3's launches counted from 0; then one more step under
+    torch.profiler.  Every loss and grad_norm must be finite, K2 launch
+    once per train step and K3 once per eval step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    state, tx = TT.create_train_state(torch.Generator().manual_seed(0), cfg,
+                                      device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = train_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    state, m = TT.train_step(state, batch, cfg, tx, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+
+    SD.grad_launches = SD.fwd_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = TT.train_step(state, batch, cfg, tx, generator=gen)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    t0 = time.perf_counter()
+    losses, outputs = TT.eval_step(state, batch, cfg, generator=gen)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    k2, k3 = SD.grad_launches, SD.fwd_launches
+    peak = torch.cuda.max_memory_allocated()
+
+    vals = {k: v.item() for k, v in m.items()}
+    evals = {k: v.item() for k, v in losses.items()}
+    if not all(np.isfinite(list(vals.values()) + list(evals.values()))) \
+            or vals["skipped"] != 0.0:
+        raise AssertionError(f"train: non-finite or skipped step {vals} "
+                             f"eval {evals}")
+    if not torch.isfinite(outputs["mel_postnet"]).all():
+        raise AssertionError("train: non-finite eval outputs")
+    if k2 != TRAIN_STEPS or k3 != 1:
+        raise AssertionError(f"train: K2 launched {k2} times in "
+                             f"{TRAIN_STEPS} train steps, K3 {k3} times in "
+                             f"1 eval step")
+    row = {"B": TRAIN_B, "T_out": TRAIN_T_OUT, "ms_per_step": step_s * 1e3,
+           "mel_frames_per_s": TRAIN_B * TRAIN_T_OUT / step_s,
+           "eval_ms": eval_s * 1e3, "peak_mem_bytes": peak,
+           "k2_launches": k2, "k3_launches": k3, "train_metrics": vals,
+           "eval_losses": evals, "gpu": gpu}
+    print("train", json.dumps(row))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = TT.train_step(state, batch, cfg, tx, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    print("train profile", json.dumps({
+        "wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+        "device_busy_share": dev_us / (wall * 1e6),
+        "kernel_launches": sum(e.count for e in kern),
+        "top_kernels_ms": [[e.key[:70], e.count,
+                            e.self_device_time_total / 1e3] for e in top]}))
+    return k2, k3
+
+
+def phase_train_parity(TT, TM, cfg, dev):
+    """One f32 train step (parity_mode) on the card against the CPU, at
+    full width with B=2, T_out=32, T_text=16, T_sub=8: the same params,
+    batch and injected randomness.  Both sides are f32 and sum in other
+    orders.  Tolerances: losses and grad_norm to 1e-4 relative.  The
+    gradients, through Adam's first moment (mu = 0.1 * the clipped
+    gradient), leaf by leaf to 1e-3 * max|mu| of the leaf, floored at 1e-3
+    of the tree's (a conv bias feeding a training-mode BatchNorm has a true
+    gradient of 0: noise on both sides).  The updated params to 2 * lr:
+    Adam's first step is -lr * g / (|g| + eps), which turns the rounding
+    noise of a near-zero gradient element into up to lr of difference."""
+    from tacotron2_subword_tpu_torch.utils.tree import to_device, tree_leaves
+    cfg32 = cfg.replace(parity_mode=True)
+    cpu = torch.device("cpu")
+    state, tx = TT.create_train_state(torch.Generator().manual_seed(2),
+                                      cfg32, device=cpu)
+    batch = train_batch(cfg32, cpu, B=2, t_out=32, T_text=16, T_sub=8,
+                        seed=3)
+    rnd = TM.make_randomness(cfg32, 2, 16, 8, 32, training=True,
+                             generator=torch.Generator().manual_seed(4))
+    new_c, m_c = TT.train_step(state, batch, cfg32, tx, randomness=rnd)
+    new_d, m_d = TT.train_step(to_device(state, dev), to_device(batch, dev),
+                               cfg32, tx, randomness=to_device(rnd, dev))
+    torch.cuda.synchronize()
+    errs = {}
+    for k, v in m_c.items():
+        errs[k] = abs(m_d[k].item() - v.item())
+        if not errs[k] <= 1e-4 * max(abs(v.item()), 1e-6):
+            raise AssertionError(f"train parity: {k} card {m_d[k].item()} "
+                                 f"cpu {v.item()}")
+    lr = cfg32.learning_rate
+    mu_c, mu_d = tree_leaves(new_c.opt_state.mu), tree_leaves(
+        new_d.opt_state.mu)
+    floor = 1e-3 * max(m.abs().max().item() for m in mu_c)
+    leaves = []
+    for path, mc, md, pc, pd in zip(_tree_paths(state.params), mu_c, mu_d,
+                                    tree_leaves(new_c.params),
+                                    tree_leaves(new_d.params)):
+        rel = ((md.cpu() - mc).abs().max().item()
+               / max(mc.abs().max().item(), floor))
+        dp = (pd.cpu() - pc).abs().max().item()
+        leaves.append((rel, path, mc.abs().max().item(), dp))
+        if rel > 5e-3 or dp > 2 * lr:
+            raise AssertionError(f"train parity: {path} mu rel {rel}, "
+                                 f"param max|d| {dp}")
+    leaves.sort(reverse=True)
+    print("train parity (f32, B=2, T_out=32, card vs CPU):",
+          json.dumps({"losses_and_grad_norm": errs,
+                      "param_max_abs": max(l[3] for l in leaves),
+                      "worst_mu_rel [rel, leaf, max|mu|, param max|d|]":
+                          leaves[:5]}))
+    return errs
+
+
+def _tree_paths(tree, prefix=""):
+    """Dotted paths of the leaves, in tree_leaves' order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _tree_paths(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _tree_paths(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def phase_train_cli(SD):
+    """The port's training CLI in-process: 16 synthetic utterances (mel
+    buckets 128 and 256), 2 iterations, validation after the second: K3
+    runs through the real entry point."""
+    import contextlib
+    import io
+    from pathlib import Path
+    from tacotron2_subword_tpu_torch.apps import train as TAPP
+    out_dir = Path(__file__).resolve().parent / "_runs" / "train_cli"
+    buf = io.StringIO()
+    SD.grad_launches = SD.fwd_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = TAPP.main(["-o", str(out_dir), "--synthetic", "16",
+                         "--max-iters", "2", "--batch-size", "8",
+                         "--hparams",
+                         "[softdtw_loss_weight:1.0-iters_per_checkpoint:2]"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log = buf.getvalue()
+    print(log, end="")
+    if "validation loss" not in log or not np.isfinite(res["val_loss"]) \
+            or not np.isfinite(res["loss"]) or res["iterations"] != 2:
+        raise AssertionError(f"train CLI: no validation or a non-finite "
+                             f"loss: {res}")
+    if SD.grad_launches != 2 or SD.fwd_launches < 1:
+        raise AssertionError(f"train CLI: K2 {SD.grad_launches}, K3 "
+                             f"{SD.fwd_launches} launches")
+    print("train cli", json.dumps({**res, "wall_s": wall,
+                                   "k2_launches": SD.grad_launches,
+                                   "k3_launches": SD.fwd_launches}))
+
+
+def phase_gate_cost(TM, TI, L, params, bn, cfg, dev, gpu):
+    """What the f32 LSTM gates cost on the serving path's non-quantized
+    bf16 decode: the prepared LSTM weights in f32 (gates f32, as in JAX)
+    against bf16 weights (bf16 gates, as the port had them), in turns
+    (f32, bf16, bf16, f32).  Device ms of the two gate matmuls of one step
+    (CUDA-graph replay) and wall us per decode step over 64 steps."""
+    cfg_bf = cfg.replace(decode_quant="")
+    f32_prepare = L.lstm_prepare
+    bf16_prepare = lambda p: {
+        "w": torch.cat([p["w_ih"], p["w_hh"]], dim=1).t().contiguous(),
+        "b": p["b_ih"] + p["b_hh"]}
+    rows = []
+    for variant in ("f32", "bf16", "bf16", "f32"):
+        L.lstm_prepare = f32_prepare if variant == "f32" else bf16_prepare
+        try:
+            for B in (4, 128):
+                reqs = make_requests(cfg_bf, [(64, 32)] * B, seed=8)
+                args = TI.pad_requests(reqs, dev)
+                run = lambda: TM.infer(
+                    params, bn, cfg_bf, *args[:4], text_lengths=args[4],
+                    sub_lengths=args[5], max_steps=64, gate_threshold=1.1,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+                run()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                dp = {k: {kk: vv.to(torch.bfloat16) for kk, vv in v.items()}
+                      for k, v in params["decoder"].items()
+                      if k in ("attention_rnn", "attention_rnn_bert",
+                               "decoder_rnn")}
+                w_att = torch.stack([L.lstm_prepare(dp["attention_rnn"])["w"],
+                                     L.lstm_prepare(
+                                         dp["attention_rnn_bert"])["w"]])
+                w_dec = L.lstm_prepare(dp["decoder_rnn"])["w"]
+                x_att = torch.randn((2, B, w_att.shape[1]), device=dev,
+                                    dtype=torch.bfloat16)
+                x_dec = torch.randn((B, w_dec.shape[0]), device=dev,
+                                    dtype=torch.bfloat16)
+                mm = lambda: (torch.bmm(x_att.to(w_att.dtype), w_att),
+                              x_dec.to(w_dec.dtype) @ w_dec)
+                rows.append({"gates": variant, "B": B,
+                             "decode_wall_us_per_step": wall / 64 * 1e6,
+                             "gate_matmuls_device_ms": device_ms(mm, 20),
+                             "gpu": gpu})
+                print("gate cost", json.dumps(rows[-1]))
+        finally:
+            L.lstm_prepare = f32_prepare
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -304,8 +640,11 @@ def main() -> int:
     from tacotron2_subword_tpu_torch.config import TacotronConfig
     from tacotron2_subword_tpu_torch.models import hifigan as HG
     from tacotron2_subword_tpu_torch.models import tacotron2 as TM
+    from tacotron2_subword_tpu_torch import train_lib as TT
+    from tacotron2_subword_tpu_torch.nn import layers as L
     from tacotron2_subword_tpu_torch.ops import _build
     from tacotron2_subword_tpu_torch.ops import quant as Q
+    from tacotron2_subword_tpu_torch.ops import softdtw as SD
     from tacotron2_subword_tpu_torch.utils.tree import to_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -340,9 +679,21 @@ def main() -> int:
 
     # 4. the whole decode on the card against the CPU
     phase_whole_path(TM, TI, params_cpu, bn_cpu, cfg, dev)
+    phase_gate_cost(TM, TI, L, params, bn, cfg, dev, gpu)
+    del params, bn, gen_params
 
-    # 5. the kernels line: K1 per decoder step of the served batch (B=4,
-    #    bf16 x): the attention-LSTM call plus the decoder-LSTM call
+    # 5. the training path: K2 and K3 against their plain versions, the
+    #    full-width soft-DTW train step with launches counted, the f32 step
+    #    on the card against the CPU, the training CLI
+    sdtw_rows = phase_softdtw(SD, dev)
+    cfg_train = TacotronConfig(softdtw_loss_weight=1.0)
+    k2_launches, k3_launches = phase_train(TT, SD, cfg_train, dev, gpu)
+    phase_train_parity(TT, TM, cfg_train, dev)
+    phase_train_cli(SD)
+
+    # 6. the kernels line: K1 per decoder step of the served batch (B=4,
+    #    bf16 x): the attention-LSTM call plus the decoder-LSTM call; K2
+    #    and K3 at the train step's shape, 8 x 128 x 128
     step = [r for r in k1_rows if r["B"] == len(REQUESTS) and r["x"] == "bf16"
             and "ms" in r]
     k1 = {"name": "dequant_int8_matmul", "route": "cuda",
@@ -357,7 +708,32 @@ def main() -> int:
         else "operations"
     k1["per"] = ("decoder step at B=4, bf16 x: (S=2,K=1792,N=4096) + "
                  "(S=1,K=4096,N=4096)")
-    print(json.dumps({"kernels": [k1]}))
+    main_row = next(r for r in sdtw_rows if (r["B"], r["N"], r["M"])
+                    == (TRAIN_B, TRAIN_T_OUT, TRAIN_T_OUT))
+    no_library = ("no single PyTorch call computes soft-DTW (a wavefront "
+                  "recursion over the distance matrix)")
+    sdtw = []
+    for name, key, fn, launches in (
+            ("softdtw_grad", "k2", "t2s_softdtw_grad", k2_launches),
+            ("softdtw_fwd", "k3", "t2s_softdtw_fwd", k3_launches)):
+        errs = [r[f"{key}_value"] for r in sdtw_rows] + (
+            [r["k2_E"] for r in sdtw_rows] if key == "k2" else [])
+        sdtw.append({
+            "name": name, "route": "cuda",
+            "source": "tacotron2_subword_tpu_torch/csrc/softdtw.cu",
+            "replaces": ("tacotron2_subword_tpu/ops/softdtw.py:357"
+                         if key == "k2" else
+                         "tacotron2_subword_tpu/ops/softdtw.py:507"),
+            "launches": launches, "max_abs_err": max(errs),
+            "ms": main_row[f"{key}_ms"], "plain_ms": main_row[f"{key}_plain_ms"],
+            "bound_ms": main_row[f"{key}_bound_ms"],
+            "bound_by": main_row[f"{key}_bound_by"], "library_ms": None,
+            "library": no_library,
+            "serial_diagonals": main_row[f"{key}_serial_diagonals"],
+            "per": (f"one call at B={TRAIN_B}, N=M={TRAIN_T_OUT} "
+                    f"({'train' if key == 'k2' else 'eval'} step)"),
+            "entry": fn})
+    print(json.dumps({"kernels": [k1] + sdtw}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ other.  The port keeps its own copy and imports nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +96,29 @@ class TacotronConfig:
     @property
     def n_freqs(self) -> int:
         return self.filter_length // 2 + 1
+
+
+def create_config(hparams_string: Optional[str] = None) -> TacotronConfig:
+    """The default config with an hparams string in the reference's
+    ``"[k:v-k:v]"`` syntax applied (unknown keys are ignored, booleans
+    parse the words true/yes/on/1)."""
+    cfg = TacotronConfig()
+    kw: dict = {}
+    if hparams_string:
+        body = hparams_string.strip()
+        if body.startswith("["):
+            body = body[1:]
+        for item in body.rstrip("]-").split("-"):
+            if ":" not in item:
+                continue
+            k, v = item.split(":", 1)
+            if not hasattr(cfg, k):
+                continue
+            kind = type(getattr(cfg, k))
+            if kind is bool:
+                kw[k] = v.strip().lower() in ("1", "true", "yes", "on")
+            elif kind is str:
+                kw[k] = v
+            else:
+                kw[k] = kind(v)
+    return cfg.replace(**kw)

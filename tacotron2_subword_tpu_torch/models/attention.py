@@ -20,6 +20,7 @@ import torch
 from tacotron2_subword_tpu_torch.nn import layers as L
 
 SCORE_MASK_VALUE = -1e9  # finite stand-in for -inf
+SMA_SIGMOID_NOISE = 2.0  # std of the training noise on SMA's energies
 
 VARIANTS = (
     "LocationSensitiveAttention",
@@ -91,14 +92,18 @@ def _context(weights: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
 
 
 def attention_step(variant: str, params, query, memory, processed_memory,
-                   mask, state):
-    """One inference step of every stream: returns (context [S, B, D],
-    weights [S, B, T], new state).  ``mask`` is True at valid positions.
+                   mask, state, noise: Optional[torch.Tensor] = None):
+    """One step of every stream: returns (context [S, B, D], weights
+    [S, B, T], new state).  ``mask`` is True at valid positions.
 
     SMA (He et al. 2019, eq. 8): p = sigmoid(energies);
-    align_t = prev * p + shift_right(prev * (1 - p))."""
+    align_t = prev * p + shift_right(prev * (1 - p)).  In training the
+    given ``noise`` [S, B, T] (N(0, 1) * SMA_SIGMOID_NOISE) is added to the
+    masked energies before the sigmoid."""
     _check_variant(variant)
     e = _masked(_additive_energies(params, query, processed_memory), mask)
+    if noise is not None:
+        e = e + noise.to(e.dtype)
     p_i = torch.sigmoid(e)
     prev = state["alignment"]
     moved = prev[..., :-1] * (1.0 - p_i[..., :-1])

@@ -1,4 +1,5 @@
-"""Dual-stream BERT-Tacotron 2, inference half, in PyTorch.
+"""Dual-stream BERT-Tacotron 2 in PyTorch: inference and teacher-forced
+training.
 
 Counterpart of ``tacotron2_subword_tpu/models/tacotron2.py``: two input
 streams (phone IDs and subword IDs), each with its own conv + BiLSTM encoder
@@ -17,11 +18,18 @@ Free-running decode stops each sample on its own gate (the stop frame is
 included).  The loop reads "all finished" on the host only every
 SYNC_EVERY steps; the outputs are masked by each sample's length, so
 the steps run after the last sample stopped change nothing.
+
+Teacher-forced training (``forward``) takes all of its randomness (dropout
+keep-masks, SMA noise) from one dict, drawn up front by ``make_randomness``
+or given by the caller, so a run can be replayed exactly.  With
+``cfg.custom_decoder_vjp`` the decoder loop's backward is hand-routed
+(``_TFScanCustom``): the big LSTM weight gradients are formed after the
+loop, as one f32 matmul each.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -143,17 +151,27 @@ def init_tacotron2(generator: torch.Generator, cfg: TacotronConfig,
 
 
 # ---------------------------------------------------------------------------
-# Sub-modules (eval)
+# Sub-modules
 # ---------------------------------------------------------------------------
 
 def encoder_apply(params, bn_state, x: torch.Tensor,
-                  lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """x [B, C, T] embedded inputs -> [B, T, C]: 3x conv/BN/ReLU, then the
-    length-exact BiLSTM."""
+                  lengths: Optional[torch.Tensor], *, training: bool = False,
+                  masks: Optional[List[torch.Tensor]] = None):
+    """x [B, C, T] embedded inputs -> ([B, T, C], new BN state): 3x
+    conv/BN/ReLU (with dropout 0.5 on ``masks`` in training), then the
+    length-exact BiLSTM.  In eval the BN state is returned as given."""
+    new_bn = []
     for i, layer in enumerate(params["convs"]):
         y = L.conv1d_apply(layer["conv"], x)
-        x = torch.relu(L.batchnorm_apply(layer["bn"], bn_state[i], y))
-    return L.bilstm_apply(params["lstm"], x.transpose(1, 2), lengths)
+        if training:
+            y, bn_s = L.batchnorm_apply(layer["bn"], bn_state[i], y, True)
+            y = L.dropout(torch.relu(y), 0.5, masks[i])
+        else:
+            bn_s = bn_state[i]
+            y = torch.relu(L.batchnorm_apply(layer["bn"], bn_s, y))
+        new_bn.append(bn_s)
+        x = y
+    return L.bilstm_apply(params["lstm"], x.transpose(1, 2), lengths), new_bn
 
 
 def prenet_apply(params, x: torch.Tensor, masks=None) -> torch.Tensor:
@@ -169,20 +187,32 @@ def prenet_apply(params, x: torch.Tensor, masks=None) -> torch.Tensor:
 
 def _prenet_masks(generator, n: int, shape, dtype, device) -> torch.Tensor:
     """n scaled keep-masks [n, *shape] in one draw."""
-    keep = 1.0 - PRENET_DROPOUT
-    m = torch.rand((n, *shape), generator=generator, device=device) < keep
-    return m.to(dtype) / keep
+    return _scaled(L.keep_mask((n, *shape), PRENET_DROPOUT, generator,
+                               device), PRENET_DROPOUT, dtype)
 
 
-def postnet_apply(params, bn_state, x: torch.Tensor) -> torch.Tensor:
-    """x [B, n_mels, T] -> residual [B, n_mels, T]: 5 convs with BN, tanh on
-    all but the last."""
+def postnet_apply(params, bn_state, x: torch.Tensor, *,
+                  training: bool = False,
+                  masks: Optional[List[torch.Tensor]] = None):
+    """x [B, n_mels, T] -> (residual [B, n_mels, T], new BN state): 5 convs
+    with BN, tanh on all but the last, dropout 0.5 on ``masks`` after every
+    layer in training."""
     n = len(params)
+    new_bn = []
     for i, layer in enumerate(params):
-        y = L.batchnorm_apply(layer["bn"], bn_state[i],
-                              L.conv1d_apply(layer["conv"], x))
-        x = torch.tanh(y) if i < n - 1 else y
-    return x
+        y = L.conv1d_apply(layer["conv"], x)
+        if training:
+            y, bn_s = L.batchnorm_apply(layer["bn"], bn_state[i], y, True)
+        else:
+            bn_s = bn_state[i]
+            y = L.batchnorm_apply(layer["bn"], bn_s, y)
+        if i < n - 1:
+            y = torch.tanh(y)
+        if training:
+            y = L.dropout(y, 0.5, masks[i])
+        new_bn.append(bn_s)
+        x = y
+    return x, new_bn
 
 
 # ---------------------------------------------------------------------------
@@ -240,20 +270,31 @@ def _decoder_carry_init(cfg: TacotronConfig, B: int, T: int, dtype,
 
 
 def _decode_step(rnn_s, att_s, dec_rnn, cfg: TacotronConfig,
-                 carry: DecoderCarry, pre_ts, memory_s, proc_mem_s, mask_s):
-    """One inference step with both streams stacked.  pre_ts [2, B, P]
-    prenet outputs; memory_s/proc_mem_s [2, B, T, .]; mask_s [2, B, T].
-    Returns (new carry, hidden_ctx [B, dec + 2*embed], weights [2, B, T])."""
+                 carry: DecoderCarry, pre_ts, memory_s, proc_mem_s, mask_s,
+                 extras=None, taps=None):
+    """One step with both streams stacked.  pre_ts [2, B, P] prenet outputs;
+    memory_s/proc_mem_s [2, B, T, .]; mask_s [2, B, T].
+
+    Training passes ``extras``: the scaled keep-masks att_h/att_c
+    [2, B, A] and dec_h/dec_c [B, D] (the reference drops both h and c of
+    each LSTM) and SMA's noise [2, B, T].  ``taps`` are zero f32 additions
+    to the two big LSTMs' gates ([2, B, 4A], [B, 4D]) for the custom
+    backward.  Returns (new carry, hidden_ctx [B, dec + 2*embed], weights
+    [2, B, T], (att_in, dec_in) the two LSTMs' inputs)."""
     att_in = torch.cat([pre_ts, carry.ctx], dim=-1)
     if "w_q" in rnn_s:
         h_att, c_att = L.lstm_cell_quant_stacked(rnn_s, att_in, carry.h_att,
                                                  carry.c_att)
     else:
-        h_att, c_att = L.lstm_cell_prepared(rnn_s, att_in, carry.h_att,
-                                            carry.c_att)
-    ctx, w, att_state = A.attention_step(cfg.attention, att_s, h_att,
-                                         memory_s, proc_mem_s, mask_s,
-                                         carry.att_state)
+        h_att, c_att = L.lstm_cell_prepared(
+            rnn_s, att_in, carry.h_att, carry.c_att,
+            None if taps is None else taps[0])
+    if extras is not None:
+        h_att = h_att * extras["att_h"]
+        c_att = c_att * extras["att_c"]
+    ctx, w, att_state = A.attention_step(
+        cfg.attention, att_s, h_att, memory_s, proc_mem_s, mask_s,
+        carry.att_state, None if extras is None else extras["noise"])
     # reference concat order: h_phone, ctx_phone, h_bert, ctx_bert
     dec_in = torch.cat([h_att[0], ctx[0], h_att[1], ctx[1]], dim=-1)
     if "w_q" in dec_rnn:
@@ -262,12 +303,240 @@ def _decode_step(rnn_s, att_s, dec_rnn, cfg: TacotronConfig,
                                            carry.c_dec[None])
         h_dec, c_dec = h1[0], c1[0]
     else:
-        h_dec, c_dec = L.lstm_cell_prepared(dec_rnn, dec_in, carry.h_dec,
-                                            carry.c_dec)
+        h_dec, c_dec = L.lstm_cell_prepared(
+            dec_rnn, dec_in, carry.h_dec, carry.c_dec,
+            None if taps is None else taps[1])
+    if extras is not None:
+        h_dec = h_dec * extras["dec_h"]
+        c_dec = c_dec * extras["dec_c"]
     hidden_ctx = torch.cat([h_dec, ctx[0], ctx[1]], dim=-1)
     new_carry = DecoderCarry(h_att=h_att, c_att=c_att, h_dec=h_dec,
                              c_dec=c_dec, ctx=ctx, att_state=att_state)
-    return new_carry, hidden_ctx, w
+    return new_carry, hidden_ctx, w, (att_in, dec_in)
+
+
+def _tf_scan_plain(cfg: TacotronConfig, rnn_s, att_s, dec_rnn, memory_s,
+                   proc_mem_s, mask_s, pre, extras=None, taps=None,
+                   save_xh: bool = False):
+    """The teacher-forced decoder loop.  pre [T, 2, B, P]; ``extras`` holds
+    the per-step training inputs (att_h, att_c, dec_h, dec_c and noise,
+    each with a leading axis T; see ``_decode_step``) and
+    ``taps`` the per-step gate taps ([T, 2, B, 4A], [T, B, 4D]).  Returns
+    hidden_ctx [T, B, H] and weights [T, 2, B, T_mem], and with ``save_xh``
+    the LSTMs' full inputs [x, h_prev] ([T, 2, B, K_att], [T, B, K_dec])."""
+    B, T = memory_s.shape[1], memory_s.shape[2]
+    carry = _decoder_carry_init(cfg, B, T, memory_s.dtype, memory_s.device)
+    hcs, ws, xh_att, xh_dec = [], [], [], []
+    for t in range(pre.shape[0]):
+        ex = None if extras is None else {k: v[t] for k, v in extras.items()}
+        tp = None if taps is None else (taps[0][t], taps[1][t])
+        h_att, h_dec = carry.h_att, carry.h_dec
+        carry, hc, w, (att_in, dec_in) = _decode_step(
+            rnn_s, att_s, dec_rnn, cfg, carry, pre[t], memory_s, proc_mem_s,
+            mask_s, ex, tp)
+        hcs.append(hc)
+        ws.append(w)
+        if save_xh:
+            xh_att.append(torch.cat([att_in, h_att], dim=-1))
+            xh_dec.append(torch.cat([dec_in, h_dec], dim=-1))
+    out = (torch.stack(hcs), torch.stack(ws))
+    if save_xh:
+        out += ((torch.stack(xh_att), torch.stack(xh_dec)),)
+    return out
+
+
+class _TFScanCustom(torch.autograd.Function):
+    """The teacher-forced decoder loop with a hand-routed backward.
+
+    Autograd of the plain loop adds each step's share of the two big LSTM
+    weight gradients into a weight-sized buffer, once per frame.  Here the
+    backward replays the loop with those weights detached and zero "taps"
+    on the gates that require grad: autograd of the replay gives the
+    per-step gate gradients dG_t as the taps' gradients, with no
+    weight-sized accumulator in the loop.  Then dW = sum_t xh_t^T dG_t is
+    one f32 matmul per weight, cast to the compute dtype as the JAX package
+    casts it.  The forward is replayed exactly: its randomness is in
+    ``extras``.
+
+    apply(cfg, mask_s, extras, rnn_w, rnn_b, dec_w, dec_b, query_w, v_w,
+    memory_s, proc_mem_s, pre) -> (hidden_ctx, weights)."""
+
+    @staticmethod
+    def forward(ctx, cfg, mask_s, extras, rnn_w, rnn_b, dec_w, dec_b,
+                query_w, v_w, memory_s, proc_mem_s, pre):
+        att_s = {"query": {"w": query_w}, "v": {"w": v_w}}
+        hc, ws = _tf_scan_plain(cfg, {"w": rnn_w, "b": rnn_b}, att_s,
+                                {"w": dec_w, "b": dec_b}, memory_s,
+                                proc_mem_s, mask_s, pre, extras)
+        ctx.cfg, ctx.extras = cfg, extras
+        ctx.save_for_backward(mask_s, rnn_w, rnn_b, dec_w, dec_b, query_w,
+                              v_w, memory_s, proc_mem_s, pre)
+        return hc, ws
+
+    @staticmethod
+    def backward(ctx, g_hc, g_ws):
+        (mask_s, rnn_w, rnn_b, dec_w, dec_b, query_w, v_w, memory_s,
+         proc_mem_s, pre) = ctx.saved_tensors
+        T, _, B = pre.shape[:3]
+        leaf = lambda t: t.detach().requires_grad_(True)
+        ins = [leaf(t) for t in (query_w, v_w, memory_s, proc_mem_s, pre)]
+        taps = (torch.zeros((T, 2, B, rnn_w.shape[-1]), dtype=torch.float32,
+                            device=pre.device, requires_grad=True),
+                torch.zeros((T, B, dec_w.shape[-1]), dtype=torch.float32,
+                            device=pre.device, requires_grad=True))
+        with torch.enable_grad():
+            hc, ws, (xh_att, xh_dec) = _tf_scan_plain(
+                ctx.cfg, {"w": rnn_w.detach(), "b": rnn_b.detach()},
+                {"query": {"w": ins[0]}, "v": {"w": ins[1]}},
+                {"w": dec_w.detach(), "b": dec_b.detach()}, ins[2], ins[3],
+                mask_s, ins[4], ctx.extras, taps, save_xh=True)
+            grads = torch.autograd.grad((hc, ws), (*ins, *taps),
+                                        (g_hc, g_ws))
+        dq, dv, dmem, dpm, dpre, dg_att, dg_dec = grads
+        dtype = xh_att.dtype
+        f32 = lambda t: t.detach().to(dtype).to(torch.float32)
+        K_att, K_dec = xh_att.shape[-1], xh_dec.shape[-1]
+        # dW[s] = sum over (t, b) of xh^T dG, one f32 matmul per weight
+        xa = f32(xh_att).permute(1, 0, 2, 3).reshape(2, -1, K_att)
+        ga = f32(dg_att).permute(1, 0, 2, 3).reshape(2, T * B, -1)
+        dW_att = torch.bmm(xa.transpose(1, 2), ga)
+        dW_dec = f32(xh_dec).reshape(-1, K_dec).t() @ f32(dg_dec).reshape(
+            T * B, -1)
+        cast = lambda d, like: d.to(dtype).to(like.dtype)
+        return (None, None, None, cast(dW_att, rnn_w),
+                dg_att.sum((0, 2)).to(rnn_b.dtype), cast(dW_dec, dec_w),
+                dg_dec.sum((0, 1)).to(dec_b.dtype), dq, dv, dmem, dpm, dpre)
+
+
+def make_randomness(cfg: TacotronConfig, B: int, T_text: int, T_sub: int,
+                    T_out: int, *, training: bool,
+                    generator: Optional[torch.Generator], device=None):
+    """Every random draw of one ``forward``, up front: boolean keep-masks
+    (True = keep) and SMA's noise.  Keys: "prenet"/"prenet_bert" (2 masks
+    [B, T_steps, prenet_dim] each, when prenet dropout is on);
+    training adds "encoder"/"encoder_sub" (one mask [B, E, T] per conv),
+    "postnet" (one mask [B, C_i, T_out] per layer), "att_h"/"att_c"
+    [T_steps, 2, B, A], "dec_h"/"dec_c" [T_steps, B, D] and "noise"
+    [T_steps, 2, B, max(T_text, T_sub)] (N(0, 1) * SMA_SIGMOID_NOISE, f32).
+    ``generator`` lives on ``device``."""
+    T_steps = T_out // cfg.n_frames_per_step
+    out = {}
+    need = training or cfg.prenet_dropout_always_on
+    if not need:
+        return out
+    if generator is None:
+        raise ValueError("dropout is on: pass a torch.Generator or the "
+                         "randomness dict")
+    keep = lambda shape, rate: L.keep_mask(shape, rate, generator, device)
+    for k in ("prenet", "prenet_bert"):
+        out[k] = [keep((B, T_steps, cfg.prenet_dim), PRENET_DROPOUT)
+                  for _ in range(2)]
+    if not training:
+        return out
+    E = cfg.encoder_embedding_dim
+    out["encoder"] = [keep((B, E, T_text), 0.5)
+                      for _ in range(cfg.encoder_n_convolutions)]
+    out["encoder_sub"] = [keep((B, E, T_sub), 0.5)
+                          for _ in range(cfg.encoder_n_convolutions)]
+    n = cfg.postnet_n_convolutions
+    out["postnet"] = [keep((B, cfg.n_mel_channels if i == n - 1
+                            else cfg.postnet_embedding_dim, T_out), 0.5)
+                      for i in range(n)]
+    Ar, Dr = cfg.attention_rnn_dim, cfg.decoder_rnn_dim
+    out["att_h"] = keep((T_steps, 2, B, Ar), cfg.p_attention_dropout)
+    out["att_c"] = keep((T_steps, 2, B, Ar), cfg.p_attention_dropout)
+    out["dec_h"] = keep((T_steps, B, Dr), cfg.p_decoder_dropout)
+    out["dec_c"] = keep((T_steps, B, Dr), cfg.p_decoder_dropout)
+    out["noise"] = torch.randn((T_steps, 2, B, max(T_text, T_sub)),
+                               generator=generator,
+                               device=device) * A.SMA_SIGMOID_NOISE
+    return out
+
+
+def _scaled(mask: torch.Tensor, rate: float, dtype) -> torch.Tensor:
+    """A boolean keep-mask as multipliers 0 or 1/(1-rate), divided in
+    ``dtype`` as the JAX package divides."""
+    return mask.to(dtype) / torch.tensor(1.0 - rate, dtype=dtype,
+                                         device=mask.device)
+
+
+def decoder_teacher_forced(dp, cfg: TacotronConfig, memory, memory_b, mels,
+                           text_lengths, sub_lengths, *, training: bool,
+                           randomness: Dict):
+    """Teacher-forced decoding.  memory [B, T_text, E], memory_b
+    [B, T_sub, E], mels [B, n_mels, T_out]; ``randomness`` from
+    ``make_randomness``.  Returns (mel [B, n_mels, T_out], gate
+    [B, T_out], alignments [B, T_steps, T_text], alignments_bert
+    [B, T_steps, T_sub]), all f32, T_steps = T_out / r.
+
+    With r = n_frames_per_step > 1 each step consumes and emits a group of
+    r frames, and the per-step gate is repeated r times to frame
+    granularity (as the JAX package does).  ``cfg.decoder_scan_unroll``
+    is a knob of JAX's scan and has no meaning here: it is ignored."""
+    B, _, T_out = mels.shape
+    r, M = cfg.n_frames_per_step, cfg.n_mel_channels
+    if T_out % r != 0:
+        raise ValueError(f"mel length {T_out} is not divisible by "
+                         f"n_frames_per_step={r}")
+    T_steps = T_out // r
+    dtype = _compute_dtype(cfg)
+    dp = cast_floats(dp, dtype)
+    memory, memory_b, mels = memory.to(dtype), memory_b.to(dtype), mels.to(dtype)
+
+    # teacher inputs: a zero go-frame group, then all but the last group
+    groups = mels.transpose(1, 2).reshape(B, T_steps, r * M)
+    teacher = torch.cat([groups.new_zeros((B, 1, r * M)), groups[:, :-1]],
+                        dim=1)
+    pre = []
+    for k in ("prenet", "prenet_bert"):
+        masks = randomness.get(k)
+        if masks is not None:
+            masks = [_scaled(m, PRENET_DROPOUT, dtype) for m in masks]
+        pre.append(prenet_apply(dp[k], teacher, masks))
+    pre = torch.stack([pre[0].transpose(0, 1), pre[1].transpose(0, 1)],
+                      dim=1)                              # [T, 2, B, P]
+
+    T_text, T_sub = memory.shape[1], memory_b.shape[1]
+    T = max(T_text, T_sub)
+    rnn_s, att_s, dec_rnn = _stack_stream_params(dp)
+    memory_s = torch.stack([_pad_T(memory, T, axis=1),
+                            _pad_T(memory_b, T, axis=1)])
+    proc_mem_s = torch.stack([
+        _pad_T(A.process_memory(dp["attention"], memory), T, axis=1),
+        _pad_T(A.process_memory(dp["attention_bert"], memory_b), T, axis=1)])
+    mask_s = torch.stack([sequence_mask(text_lengths, T),
+                          sequence_mask(sub_lengths, T)])
+
+    extras = None
+    if training:
+        extras = {
+            "att_h": _scaled(randomness["att_h"], cfg.p_attention_dropout,
+                             dtype),
+            "att_c": _scaled(randomness["att_c"], cfg.p_attention_dropout,
+                             dtype),
+            "dec_h": _scaled(randomness["dec_h"], cfg.p_decoder_dropout,
+                             dtype),
+            "dec_c": _scaled(randomness["dec_c"], cfg.p_decoder_dropout,
+                             dtype),
+            "noise": randomness["noise"][..., :T].to(dtype)}
+    if training and cfg.custom_decoder_vjp and torch.is_grad_enabled():
+        hidden_ctx, ws = _TFScanCustom.apply(
+            cfg, mask_s, extras, rnn_s["w"], rnn_s["b"], dec_rnn["w"],
+            dec_rnn["b"], att_s["query"]["w"], att_s["v"]["w"], memory_s,
+            proc_mem_s, pre)
+    else:
+        hidden_ctx, ws = _tf_scan_plain(cfg, rnn_s, att_s, dec_rnn, memory_s,
+                                        proc_mem_s, mask_s, pre, extras)
+
+    mel_out = L.linear_apply(dp["linear_projection"], hidden_ctx)  # [T, B, rM]
+    gate_out = L.linear_apply(dp["gate_layer"], hidden_ctx)[..., 0]  # [T, B]
+    mel = mel_out.transpose(0, 1).reshape(B, T_out, M).transpose(1, 2)
+    gate = gate_out.t().float()
+    if r > 1:
+        gate = gate.repeat_interleave(r, dim=1)
+    return (mel.float(), gate,
+            ws[:, 0, :, :T_text].transpose(0, 1).float(),
+            ws[:, 1, :, :T_sub].transpose(0, 1).float())
 
 
 def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
@@ -327,7 +596,7 @@ def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
             masks = masks_b = None
         pre_ts = torch.stack([prenet_apply(dp["prenet"], prev, masks),
                               prenet_apply(dp["prenet_bert"], prev, masks_b)])
-        carry, hidden_ctx, w_s = _decode_step(
+        carry, hidden_ctx, w_s, _ = _decode_step(
             rnn_s, att_s, dec_rnn, cfg, carry, pre_ts, memory_s, proc_mem_s,
             mask_s)
         mel_t = L.linear_apply(dp["linear_projection"], hidden_ctx)
@@ -372,16 +641,77 @@ def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _encode_stream(params, bn_state, emb_table, ids, lengths, cls, converter,
-                   dtype: torch.dtype) -> torch.Tensor:
-    """embedding -> encoder -> concat [CLS] -> linear converter -> memory
-    [B, T, encoder_embedding_dim], in ``dtype``."""
+                   dtype: torch.dtype, *, training: bool = False,
+                   masks: Optional[List[torch.Tensor]] = None):
+    """embedding -> encoder -> concat [CLS] -> linear converter: (memory
+    [B, T, encoder_embedding_dim] in ``dtype``, new encoder BN state)."""
     params = cast_floats(params, dtype)
     emb = L.embedding_apply(emb_table.to(dtype), ids)      # [B, T, C]
-    enc = encoder_apply(params, bn_state, emb.transpose(1, 2), lengths)
+    enc, new_bn = encoder_apply(params, bn_state, emb.transpose(1, 2), lengths,
+                                training=training, masks=masks)
     if cls.dim() == 2:
         cls = cls[:, None, :].expand(-1, enc.shape[1], -1)
     fused = torch.cat([enc, cls.to(enc.dtype)], dim=-1)
-    return L.linear_apply(cast_floats(converter, dtype), fused)
+    return L.linear_apply(cast_floats(converter, dtype), fused), new_bn
+
+
+def parse_output(mel, mel_postnet, gate, output_lengths, n_mel_channels,
+                 mask_padding: bool = True):
+    """Zero the padded mel frames and fill the padded gate energies with
+    GATE_PAD_VALUE."""
+    if not mask_padding or output_lengths is None:
+        return mel, mel_postnet, gate
+    valid = sequence_mask(output_lengths, mel.shape[-1])
+    return (mel * valid[:, None, :], mel_postnet * valid[:, None, :],
+            torch.where(valid, gate, GATE_PAD_VALUE))
+
+
+def forward(params, bn_state, cfg: TacotronConfig, batch, *, training: bool,
+            generator: Optional[torch.Generator] = None,
+            randomness: Optional[Dict] = None):
+    """Teacher-forced forward pass.
+
+    batch: text [B, T_text] int, text_lengths [B], sub [B, T_sub] int,
+    sub_lengths [B], mels [B, n_mels, T_out], output_lengths [B],
+    cls_phone / cls_sub [B, 768] (or per token [B, T, 768]), all on one
+    device.  The randomness comes from ``randomness`` (see
+    ``make_randomness``) or, when that is None, is drawn from
+    ``generator`` (on the batch's device).
+
+    Returns (outputs {mel, mel_postnet, gate, alignments,
+    alignments_bert}, new BN state)."""
+    dtype = _compute_dtype(cfg)
+    if randomness is None:
+        B, T_text = batch["text"].shape
+        randomness = make_randomness(
+            cfg, B, T_text, batch["sub"].shape[1], batch["mels"].shape[2],
+            training=training, generator=generator,
+            device=batch["mels"].device)
+    memory, bn_enc = _encode_stream(
+        params["encoder"], bn_state["encoder"], params["embedding"],
+        batch["text"], batch["text_lengths"], batch["cls_phone"],
+        params["linear_converter"], dtype, training=training,
+        masks=randomness.get("encoder"))
+    memory_b, bn_enc_b = _encode_stream(
+        params["encoder_sub"], bn_state["encoder_sub"],
+        params["embedding_sub"], batch["sub"], batch["sub_lengths"],
+        batch["cls_sub"], params["linear_converter_sub"], dtype,
+        training=training, masks=randomness.get("encoder_sub"))
+    mel, gate, align, align_b = decoder_teacher_forced(
+        params["decoder"], cfg, memory, memory_b, batch["mels"],
+        batch["text_lengths"], batch["sub_lengths"], training=training,
+        randomness=randomness)
+    residual, bn_post = postnet_apply(
+        cast_floats(params["postnet"], dtype), bn_state["postnet"],
+        mel.to(dtype), training=training, masks=randomness.get("postnet"))
+    mel_postnet = mel + residual.float()
+    mel, mel_postnet, gate = parse_output(
+        mel, mel_postnet, gate, batch.get("output_lengths"),
+        cfg.n_mel_channels, cfg.mask_padding)
+    outputs = {"mel": mel, "mel_postnet": mel_postnet, "gate": gate,
+               "alignments": align, "alignments_bert": align_b}
+    return outputs, {"encoder": bn_enc, "encoder_sub": bn_enc_b,
+                     "postnet": bn_post}
 
 
 @torch.inference_mode()
@@ -395,18 +725,20 @@ def infer(params, bn_state, cfg: TacotronConfig, text, sub, cls_phone,
     plus mel_postnet [B, n_mels, S*r].  All inputs on one device; optional
     lengths make padded batches exact."""
     dtype = _compute_dtype(cfg)
-    memory = _encode_stream(params["encoder"], bn_state["encoder"],
-                            params["embedding"], text, text_lengths,
-                            cls_phone, params["linear_converter"], dtype)
-    memory_b = _encode_stream(params["encoder_sub"], bn_state["encoder_sub"],
-                              params["embedding_sub"], sub, sub_lengths,
-                              cls_sub, params["linear_converter_sub"], dtype)
+    memory, _ = _encode_stream(params["encoder"], bn_state["encoder"],
+                               params["embedding"], text, text_lengths,
+                               cls_phone, params["linear_converter"], dtype)
+    memory_b, _ = _encode_stream(params["encoder_sub"],
+                                 bn_state["encoder_sub"],
+                                 params["embedding_sub"], sub, sub_lengths,
+                                 cls_sub, params["linear_converter_sub"],
+                                 dtype)
     out = decoder_infer(params["decoder"], cfg, memory, memory_b,
                         generator=generator, max_steps=max_steps,
                         gate_threshold=gate_threshold,
                         text_lengths=text_lengths, sub_lengths=sub_lengths)
-    residual = postnet_apply(cast_floats(params["postnet"], dtype),
-                             bn_state["postnet"], out["mel"].to(dtype))
+    residual, _ = postnet_apply(cast_floats(params["postnet"], dtype),
+                                bn_state["postnet"], out["mel"].to(dtype))
     valid = sequence_mask(out["mel_lengths"], out["mel"].shape[-1])
     out["mel_postnet"] = ((out["mel"] + residual.float())
                           * valid[:, None, :])

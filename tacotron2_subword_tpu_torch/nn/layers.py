@@ -1,4 +1,4 @@
-"""Primitive layers of the inference path as functions over dicts of tensors.
+"""Primitive layers as functions over dicts of tensors.
 
 Counterpart of ``tacotron2_subword_tpu/nn/layers.py``, with the same
 parameter layouts, so one set of weights serves both packages:
@@ -131,14 +131,51 @@ def fuse_weight_norm(p):
     return out
 
 
-# -- BatchNorm1d (eval) / embedding ----------------------------------------------
+# -- BatchNorm1d / dropout / embedding ------------------------------------------
 
-def batchnorm_apply(params, state, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm1d over x [B, C, T] with running statistics."""
-    inv = torch.rsqrt(state["var"] + 1e-5) * params["scale"]
-    y = ((x - state["mean"][None, :, None]) * inv[None, :, None]
-         + params["bias"][None, :, None])
-    return y.to(x.dtype)
+def batchnorm_apply(params, state, x: torch.Tensor, training: bool = False,
+                    momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm1d over x [B, C, T].
+
+    Eval mode returns y, normalised with the running statistics.  Training
+    mode returns (y, new_state): y is normalised with the batch statistics
+    over (B, T), taken in f32 and biased (padding included, as in the
+    reference); the running variance takes Bessel's correction over the
+    B*T values, with ``momentum``."""
+    if not training:
+        mean, var = state["mean"], state["var"]
+    else:
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=(0, 2))
+        var = xf.var(dim=(0, 2), unbiased=False)
+        count = x.shape[0] * x.shape[2]
+        unbiased = var * count / max(count - 1.0, 1.0)
+        new_state = {
+            "mean": (1 - momentum) * state["mean"] + momentum * mean,
+            "var": (1 - momentum) * state["var"] + momentum * unbiased}
+    inv = torch.rsqrt(var + eps) * params["scale"]
+    y = ((x - mean[None, :, None]) * inv[None, :, None]
+         + params["bias"][None, :, None]).to(x.dtype)
+    return (y, new_state) if training else y
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator,
+              device=None) -> torch.Tensor:
+    """A boolean keep-mask: True with probability 1 - rate."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def dropout(x: torch.Tensor, rate: float,
+            mask: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: where(mask, x / (1 - rate), 0), in x's dtype, with
+    the given boolean keep-mask or, without one, a mask drawn from
+    ``generator`` (on x's device)."""
+    if rate == 0.0:
+        return x
+    if mask is None:
+        mask = keep_mask(x.shape, rate, generator, x.device)
+    return torch.where(mask, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def embedding_apply(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -150,8 +187,14 @@ def embedding_apply(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def lstm_prepare(p):
     """Fuse torch-layout LSTM params into {w: [in+H, 4H], b: [4H]}.  Call
-    outside any loop: the concat and transpose copy the whole weight."""
-    return {"w": torch.cat([p["w_ih"], p["w_hh"]], dim=1).t().contiguous(),
+    outside any loop: the concat and transpose copy the whole weight.
+
+    ``w`` is kept in f32 whatever the params' dtype: the gate matmul then
+    returns f32 gates from bf16 values, as JAX's ``preferred_element_type=
+    float32`` does (a bf16 value is exact in f32, and with TF32 off the
+    product is summed in f32).  ``b`` keeps the params' dtype."""
+    w = torch.cat([p["w_ih"], p["w_hh"]], dim=1).t()
+    return {"w": w.to(torch.float32).contiguous(),
             "b": p["b_ih"] + p["b_hh"]}
 
 
@@ -163,13 +206,19 @@ def _lstm_nonlin(gates: torch.Tensor, c: torch.Tensor, out_dtype):
     return h_new.to(out_dtype), c_new.to(out_dtype)
 
 
-def lstm_cell_prepared(pp, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+def lstm_cell_prepared(pp, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                       tap: Optional[torch.Tensor] = None):
     """One LSTM step on prepared params.  Either one cell (x [B, in], w
     [in+H, 4H]) or a stack of S cells (x [S, B, in], w [S, in+H, 4H],
-    b [S, 4H])."""
-    gates = torch.cat([x, h], dim=-1) @ pp["w"]
+    b [S, 4H]).  The gates are f32 (see ``lstm_prepare``).
+
+    ``tap`` optionally adds a (zero) [..., 4H] f32 term to the gates: the
+    decoder's custom backward reads the per-step gate gradients from it."""
+    xh = torch.cat([x, h], dim=-1).to(pp["w"].dtype)
     b = pp["b"]
-    gates = gates.to(torch.float32) + (b[:, None, :] if b.dim() == 2 else b)
+    gates = xh @ pp["w"] + (b[:, None, :] if b.dim() == 2 else b)
+    if tap is not None:
+        gates = gates + tap
     return _lstm_nonlin(gates, c, x.dtype)
 
 

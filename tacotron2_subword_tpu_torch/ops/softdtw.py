@@ -1,0 +1,303 @@
+"""Soft-DTW on a distance matrix, with the hand-written kernels K2 and K3.
+
+Counterpart of ``tacotron2_subword_tpu/ops/softdtw.py`` (Cuturi & Blondel
+2017, as the reference's numba CUDA kernels compute it):
+
+    R[i,j] = D[i,j] + softmin_gamma(R[i-1,j], R[i,j-1], R[i-1,j-1])
+
+with R[-1,-1] = 0, every other edge +INF, an optional Sakoe-Chiba band
+(|i-j| <= bandwidth on 1-based indices; bandwidth <= 0 means none) and
+value = R[N-1,M-1].  E = d value / d D comes from the reversed wavefront.
+INF is the finite sentinel 1e30, so only f32 is taken.
+
+ - ``softdtw_grad(D, gamma, bw) -> (value, E)`` launches K2
+   (``csrc/softdtw.cu`` ``t2s_softdtw_grad``, forward and backward in one
+   launch) for a CUDA tensor;
+ - ``softdtw_value(D, gamma, bw) -> value`` launches K3
+   (``t2s_softdtw_fwd``, forward only) for a CUDA tensor;
+ - ``softdtw_diff`` is differentiable: where D needs a gradient its forward
+   runs K2 and keeps E for the backward, otherwise it runs K3;
+ - ``softdtw`` is the plain implementation as a differentiable op (the JAX
+   package's scan ``softdtw``), chosen with ``softdtw_impl="scan"``.
+
+A CPU tensor takes the kernels' plain versions (``softdtw_grad_plain``,
+``softdtw_value_plain``); a CUDA tensor launches the kernel or raises.
+``grad_launches`` and ``fwd_launches`` count K2's and K3's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from tacotron2_subword_tpu_torch.ops import _build
+
+INF = 1e30
+KERNEL = "softdtw"
+grad_launches = 0  # K2 launches since the last reset (set to 0 to reset)
+fwd_launches = 0   # K3 launches since the last reset
+
+
+def euclidean_dist_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared euclidean distances: x [B,N,D], y [B,M,D] ->
+    [B,N,M] (the cross term summed in f32), clamped at 0."""
+    x2 = torch.sum(x * x, dim=-1)[:, :, None]
+    y2 = torch.sum(y * y, dim=-1)[:, None, :]
+    xy = torch.einsum("bnd,bmd->bnm", x.float(), y.float())
+    return torch.clamp_min(x2 + y2 - 2 * xy, 0.0).to(x.dtype)
+
+
+def band_mask(N: int, M: int, bandwidth: Optional[float],
+              device=None) -> torch.Tensor:
+    """[N, M] bool: True where |i-j| <= bandwidth (1-based), everywhere when
+    bandwidth <= 0."""
+    if bandwidth is None or bandwidth <= 0:
+        return torch.ones((N, M), dtype=torch.bool, device=device)
+    i = torch.arange(1, N + 1, device=device)[:, None]
+    j = torch.arange(1, M + 1, device=device)[None, :]
+    return (i - j).abs() <= bandwidth
+
+
+def _softmin3(a, b, c, gamma: float):
+    """-gamma * logsumexp(-[a, b, c] / gamma), stable."""
+    r0, r1, r2 = -a / gamma, -b / gamma, -c / gamma
+    rmax = torch.maximum(torch.maximum(r0, r1), r2)
+    rsum = torch.exp(r0 - rmax) + torch.exp(r1 - rmax) + torch.exp(r2 - rmax)
+    return -gamma * (torch.log(rsum) + rmax)
+
+
+def _diagonals(D: torch.Tensor, bandwidth) -> torch.Tensor:
+    """D [B,N,M] -> [P,B,N] with out[p,b,i] = D[b,i,p-i]; +INF off the grid
+    and outside the band."""
+    B, N, M = D.shape
+    P = N + M - 1
+    dev = D.device
+    i = torch.arange(N, device=dev)
+    j = torch.arange(P, device=dev)[:, None] - i[None, :]          # [P, N]
+    valid = (j >= 0) & (j < M)
+    Dm = torch.where(band_mask(N, M, bandwidth, dev)[None], D, INF)
+    d = Dm[:, i[None, :], j.clamp(0, M - 1)]                       # [B, P, N]
+    return torch.where(valid[None], d, INF).permute(1, 0, 2)
+
+
+def _shift_down(r: torch.Tensor, fill: float) -> torch.Tensor:
+    """Row i takes row i-1 (along the last axis); row 0 takes ``fill``."""
+    return torch.cat([torch.full_like(r[:, :1], fill), r[:, :-1]], dim=1)
+
+
+def _shift_up(r: torch.Tensor, fill: float) -> torch.Tensor:
+    """Row i takes row i+1; the last row takes ``fill``."""
+    return torch.cat([r[:, 1:], torch.full_like(r[:, :1], fill)], dim=1)
+
+
+def _forward_scan(D: torch.Tensor, gamma: float, bandwidth, keep_r: bool):
+    """Plain forward wavefront.  Returns (value [B], R diagonals [P,B,N] or
+    None).  Dead cells (off the grid, outside the band) hold +INF."""
+    B, N, M = D.shape
+    diag_d = _diagonals(D, bandwidth)
+    r1 = torch.full((B, N), INF, dtype=D.dtype, device=D.device)
+    r2 = r1
+    rs = [] if keep_r else None
+    for p in range(diag_d.shape[0]):
+        d_p = diag_d[p]
+        dd = _shift_down(r2, 0.0 if p == 0 else INF)   # origin seed R[-1,-1]
+        sm = _softmin3(_shift_down(r1, INF), r1, dd, gamma)
+        r = torch.where(d_p >= INF / 2, INF, d_p + sm)
+        if keep_r:
+            rs.append(r)
+        r1, r2 = r, r1
+    return r1[:, N - 1], (torch.stack(rs) if keep_r else None)
+
+
+def _backward_scan(D: torch.Tensor, r_diags: torch.Tensor, gamma: float,
+                   bandwidth) -> torch.Tensor:
+    """Plain reverse wavefront: E = d value / d D [B,N,M]."""
+    B, N, M = D.shape
+    P = N + M - 1
+    diag_d = _diagonals(D, bandwidth)
+    dz = torch.where(diag_d >= INF / 2, 0.0, diag_d)
+    R = torch.where(r_diags >= INF / 2, -INF, r_diags)
+    neg = torch.full((B, N), -INF, dtype=D.dtype, device=D.device)
+    zero = torch.zeros((B, N), dtype=D.dtype, device=D.device)
+    e1 = e2 = zero
+    es = [None] * P
+    for p in range(P - 1, -1, -1):
+        r_p = R[p]
+        r_n1, d_n1 = (R[p + 1], dz[p + 1]) if p + 1 < P else (neg, zero)
+        r_n2, d_n2 = (R[p + 2], dz[p + 2]) if p + 2 < P else (neg, zero)
+        # successors (i+1, j), (i, j+1), (i+1, j+1)
+        ea = _shift_up(e1, 0.0) * torch.exp(
+            (_shift_up(r_n1, -INF) - r_p - _shift_up(d_n1, 0.0)) / gamma)
+        eb = e1 * torch.exp((r_n1 - r_p - d_n1) / gamma)
+        ec = _shift_up(e2, 0.0) * torch.exp(
+            (_shift_up(r_n2, -INF) - r_p - _shift_up(d_n2, 0.0)) / gamma)
+        e = ea + eb + ec
+        if p == P - 1:
+            e = torch.cat([e[:, :N - 1], torch.ones_like(e[:, :1])], dim=1)
+        e = torch.where(r_p <= -INF / 2, 0.0, e)   # dead cells, after the sum
+        es[p] = e
+        e1, e2 = e, e1
+    e_diag = torch.stack(es, dim=1)                                # [B, P, N]
+    i = torch.arange(N, device=D.device)[:, None]
+    j = torch.arange(M, device=D.device)[None, :]
+    return e_diag[:, i + j, i]
+
+
+def softdtw_grad_plain(D: torch.Tensor, gamma: float = 1.0,
+                       bandwidth: float = 0.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: (value [B], E [B,N,M])."""
+    value, r_diags = _forward_scan(D, gamma, bandwidth, keep_r=True)
+    return value, _backward_scan(D, r_diags, gamma, bandwidth)
+
+
+def softdtw_value_plain(D: torch.Tensor, gamma: float = 1.0,
+                        bandwidth: float = 0.0) -> torch.Tensor:
+    """Plain version of K3: value [B]."""
+    return _forward_scan(D, gamma, bandwidth, keep_r=False)[0]
+
+
+def _on_cuda(D: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version); True for a CUDA tensor that
+    the kernels take; raises otherwise."""
+    if D.dim() != 3:
+        raise ValueError(f"want D [B, N, M], got {tuple(D.shape)}")
+    if D.dtype != torch.float32:
+        raise TypeError(f"soft-DTW takes f32 only (INF = 1e30), got {D.dtype}")
+    if D.device.type == "cpu":
+        return False
+    if D.device.type != "cuda":
+        raise ValueError(f"D must be on the CPU or a CUDA device, got "
+                         f"{D.device}")
+    if not D.is_contiguous():
+        raise ValueError("D must be contiguous")
+    return True
+
+
+def softdtw_grad(D: torch.Tensor, gamma: float = 1.0,
+                 bandwidth: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(value [B], E = d value / d D [B,N,M]) for D [B,N,M] f32: K2 on a
+    CUDA tensor, its plain version on a CPU tensor."""
+    global grad_launches
+    if not _on_cuda(D):
+        return softdtw_grad_plain(D, gamma, bandwidth)
+    B, N, M = D.shape
+    value = torch.empty((B,), dtype=torch.float32, device=D.device)
+    E = torch.empty((B, N, M), dtype=torch.float32, device=D.device)
+    ws = torch.empty((B * (N + 2) * (M + 2),), dtype=torch.float32,
+                     device=D.device)
+    lib = _lib()
+    with torch.cuda.device(D.device):
+        code = lib.t2s_softdtw_grad(
+            D.data_ptr(), ws.data_ptr(), E.data_ptr(), value.data_ptr(),
+            B, N, M, float(gamma), float(bandwidth or 0.0),
+            torch.cuda.current_stream(D.device).cuda_stream)
+    _build.check(lib, code, "softdtw_grad")
+    grad_launches += 1
+    return value, E
+
+
+def softdtw_value(D: torch.Tensor, gamma: float = 1.0,
+                  bandwidth: float = 0.0) -> torch.Tensor:
+    """value [B] for D [B,N,M] f32: K3 on a CUDA tensor, its plain version
+    on a CPU tensor."""
+    global fwd_launches
+    if not _on_cuda(D):
+        return softdtw_value_plain(D, gamma, bandwidth)
+    B, N, M = D.shape
+    value = torch.empty((B,), dtype=torch.float32, device=D.device)
+    lib = _lib()
+    with torch.cuda.device(D.device):
+        code = lib.t2s_softdtw_fwd(
+            D.data_ptr(), value.data_ptr(), B, N, M, float(gamma),
+            float(bandwidth or 0.0),
+            torch.cuda.current_stream(D.device).cuda_stream)
+    _build.check(lib, code, "softdtw_fwd")
+    fwd_launches += 1
+    return value
+
+
+def _needs_grad(D: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and D.requires_grad
+
+
+class _SoftDTWKernels(torch.autograd.Function):
+    """K2 in the forward, E kept for the backward g[:, None, None] * E."""
+
+    @staticmethod
+    def forward(ctx, D, gamma, bandwidth):
+        value, E = softdtw_grad(D, gamma, bandwidth)
+        ctx.save_for_backward(E)
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        (E,) = ctx.saved_tensors
+        return g[:, None, None] * E, None, None
+
+
+class _SoftDTWPlain(torch.autograd.Function):
+    """The plain implementation: forward wavefront keeping R, reverse
+    wavefront in the backward."""
+
+    @staticmethod
+    def forward(ctx, D, gamma, bandwidth):
+        value, r_diags = _forward_scan(D, gamma, bandwidth, keep_r=True)
+        ctx.save_for_backward(D, r_diags)
+        ctx.gamma, ctx.bandwidth = gamma, bandwidth
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        D, r_diags = ctx.saved_tensors
+        E = _backward_scan(D, r_diags, ctx.gamma, ctx.bandwidth)
+        return g[:, None, None] * E, None, None
+
+
+def softdtw_diff(D: torch.Tensor, gamma: float = 1.0,
+                 bandwidth: float = 0.0) -> torch.Tensor:
+    """Differentiable soft-DTW value [B] through the kernels (the JAX
+    package's ``softdtw_pallas_diff``): K2 where D needs a gradient, K3
+    where it does not (no autograd, or under ``torch.no_grad``)."""
+    if _needs_grad(D):
+        return _SoftDTWKernels.apply(D, gamma, bandwidth)
+    return softdtw_value(D, gamma, bandwidth)
+
+
+def softdtw(D: torch.Tensor, gamma: float = 1.0,
+            bandwidth: float = 0.0) -> torch.Tensor:
+    """Differentiable soft-DTW value [B] through the plain implementation
+    (the JAX package's scan ``softdtw``)."""
+    if _needs_grad(D):
+        return _SoftDTWPlain.apply(D, gamma, bandwidth)
+    return _forward_scan(D, gamma, bandwidth, keep_r=False)[0]
+
+
+def softdtw_distance(x: torch.Tensor, y: torch.Tensor, *, gamma: float = 1.0,
+                     bandwidth: float = 0.0,
+                     normalize: bool = False) -> torch.Tensor:
+    """Soft-DTW between batched sequences x [B,N,D] and y [B,M,D]; with
+    ``normalize`` the divergence d(x,y) - (d(x,x) + d(y,y)) / 2."""
+    d_xy = softdtw(euclidean_dist_matrix(x, y), gamma, bandwidth)
+    if not normalize:
+        return d_xy
+    d_xx = softdtw(euclidean_dist_matrix(x, x), gamma, bandwidth)
+    d_yy = softdtw(euclidean_dist_matrix(y, y), gamma, bandwidth)
+    return d_xy - 0.5 * (d_xx + d_yy)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    if lib.t2s_softdtw_grad.argtypes is None:
+        f = ctypes.c_float
+        lib.t2s_softdtw_grad.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [f, f,
+                                                          ctypes.c_void_p])
+        lib.t2s_softdtw_grad.restype = ctypes.c_int
+        lib.t2s_softdtw_fwd.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [f, f,
+                                                          ctypes.c_void_p])
+        lib.t2s_softdtw_fwd.restype = ctypes.c_int
+    return lib

@@ -77,6 +77,21 @@ def tacotron2_params_from_numpy(params, bn_state, cfg: TacotronConfig,
     return p, bn
 
 
+def adam_state_from_numpy(count, mu, nu, params, device="cuda"):
+    """optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; numpy, the
+    moments over the params' tree) -> the port's ``train_lib.AdamState`` on
+    ``device``, each moment checked against the matching leaf of the
+    port's ``params``.  With it a JAX train state and the port's take the
+    same next step."""
+    from tacotron2_subword_tpu_torch.train_lib import AdamState
+    device = resolve_device(device)
+    m, v = _tensors(mu, device), _tensors(nu, device)
+    for name, tree in (("mu", m), ("nu", v)):
+        tree_map(lambda a, p: _expect(name, a, p.shape), tree, params)
+    c = torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device)
+    return AdamState(c, m, v)
+
+
 def hifigan_params_from_numpy(params, h: HifiganConfig, device="cuda"):
     """HiFi-GAN generator params of the JAX package (weight-normed or
     fused), as a numpy tree -> the port's params on ``device``."""

@@ -14,9 +14,18 @@ def tree_map(fn: Callable[..., Any], tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
     return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 def tree_stack(trees: Sequence) -> Any:
@@ -32,4 +41,6 @@ def cast_floats(tree, dtype: torch.dtype):
 
 
 def to_device(tree, device):
-    return tree_map(lambda t: t.to(device), tree)
+    """Move every tensor of ``tree`` to ``device`` (other leaves stay)."""
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor)
+                    else t, tree)

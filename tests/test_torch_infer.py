@@ -78,17 +78,19 @@ def test_infer_matches_jax(quant):
 @pytest.mark.parametrize("quant", ["", "int8"])
 def test_infer_bf16_close_to_jax(quant):
     """The serving dtype, bf16 (int8 weights quantized after the cast).
-    The frameworks round to bf16 at other points (the port's bf16 gate
-    matmul returns bf16, JAX's f32), and the 12-step recurrence carries
-    that: mean |d| <= 2 % of mean |ref|, max |d| <= 0.1 (measured 0.35 %
-    and 0.022 when written)."""
+    The LSTM gates are f32 in both (from bf16 operands), but the
+    frameworks still round to bf16 at other points (XLA fuses chains of
+    bf16 elementwise ops and rounds once; PyTorch rounds after each op),
+    and the 12-step recurrence carries that: mean |d| <= 1 % of mean |ref|,
+    max |d| <= 0.05 (measured 0.25-0.41 % and 0.0195 with the f32 gates;
+    0.35 % and 0.022 when the port's gates were bf16)."""
     cfg = SMALL.replace(parity_mode=False, compute_dtype="bfloat16",
                         decode_quant=quant, prenet_dropout_always_on=False)
     j, t = _both(cfg, max_steps=12, gate_threshold=1.1)
     for k in OUT_KEYS:
         a = np.asarray(j[k], np.float32)
         d = np.abs(t[k].numpy() - a)
-        assert d.mean() <= 0.02 * np.abs(a).mean() and d.max() <= 0.1, k
+        assert d.mean() <= 0.01 * np.abs(a).mean() and d.max() <= 0.05, k
     np.testing.assert_array_equal(t["mel_lengths"].numpy(),
                                   np.asarray(j["mel_lengths"]))
 

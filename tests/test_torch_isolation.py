@@ -23,7 +23,8 @@ def test_port_has_the_slice_modules():
     mods = set(_port_modules())
     for name in ("config", "ops.quant", "nn.layers", "models.attention",
                  "models.tacotron2", "models.hifigan", "utils.import_jax",
-                 "apps.inference"):
+                 "apps.inference", "ops.softdtw", "train_lib",
+                 "data.dataset", "apps.train"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tacotron2_subword_tpu_torch.ops import quant as TQ
+from tacotron2_subword_tpu_torch.ops import softdtw as TS
 
 
 @pytest.fixture
@@ -77,3 +78,38 @@ def test_k1_matches_plain_on_card(cuda_device, S, B, K, N, x_dtype):
     assert TQ.launches == before + 1
     tol = (1e-4 if x_dtype == torch.float32 else 2e-3) * ref.abs().max()
     assert (y - ref).abs().max() <= tol
+
+
+SDTW_SHAPES = [((8, 128, 128), 0.0), ((8, 256, 256), 0.0), ((3, 17, 15), 0.0),
+               ((2, 20, 30), 0.0), ((2, 20, 30), 12.0), ((2, 24, 24), 5.0),
+               ((2, 9, 9), 2.0), ((1, 1100, 900), 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bw", SDTW_SHAPES)
+def test_softdtw_kernels_match_plain_on_card(cuda_device, shape, bw):
+    """K2 (value, E) and K3 (value) against their plain versions: the same
+    f32 operations in the same order, so |d value| <= 1e-5 * max(1,
+    |value|) and |d E| <= 1e-5; each kernel run twice gives bit-equal
+    results (a missing barrier shows as drift); E is 0 outside the band."""
+    B, N, M = shape
+    g = torch.Generator(device=cuda_device).manual_seed(N + M)
+    x = torch.randn((B, N, 8), generator=g, device=cuda_device)
+    y = torch.randn((B, M, 8), generator=g, device=cuda_device)
+    D = TS.euclidean_dist_matrix(x, y)
+    k2, k3 = TS.grad_launches, TS.fwd_launches
+    v, E = TS.softdtw_grad(D, 1.0, bw)
+    v_again, E_again = TS.softdtw_grad(D, 1.0, bw)
+    v3 = TS.softdtw_value(D, 1.0, bw)
+    v3_again = TS.softdtw_value(D, 1.0, bw)
+    pv, pE = TS.softdtw_grad_plain(D, 1.0, bw)
+    torch.cuda.synchronize()
+    assert (TS.grad_launches, TS.fwd_launches) == (k2 + 2, k3 + 2)
+    assert torch.equal(v, v_again) and torch.equal(E, E_again)
+    assert torch.equal(v3, v3_again)
+    tol = 1e-5 * pv.abs().clamp_min(1.0)
+    assert ((v - pv).abs() <= tol).all() and ((v3 - pv).abs() <= tol).all()
+    assert (E - pE).abs().max().item() <= 1e-5
+    assert torch.isfinite(E).all()
+    banned = ~TS.band_mask(N, M, bw, cuda_device)
+    assert (E[:, banned] == 0).all()

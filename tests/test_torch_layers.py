@@ -93,6 +93,35 @@ def test_lstm_cell_prepared_single_and_stacked():
     _check(tc, np.stack([np.asarray(j[1]) for j in js]))
 
 
+def test_bf16_lstm_gates_are_f32_like_jax(monkeypatch):
+    """bf16 weights and inputs: the gate matmul gives f32 gates, as JAX's
+    preferred_element_type=float32 does, equal to JAX's to f32 rounding
+    (bf16 gates would be off by ~1e-2 relative); h and c then agree to one
+    bf16 rounding."""
+    bf = lambda tree: jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    p = bf(JL.lstm_cell_init(jax.random.PRNGKey(11), 64, 32))
+    x, h, c = (bf(jnp.asarray(_x(s, i))) for i, s in
+               enumerate(((4, 64), (4, 32), (4, 32)), start=12))
+    jp = JL.lstm_prepare(p)
+    j_gates = jnp.dot(jnp.concatenate([x, h], axis=-1), jp["w"],
+                      preferred_element_type=jnp.float32) + jp["b"]
+    jh, jc = JL.lstm_cell_prepared(jp, x, h, c)
+    seen = []
+    nonlin = TL._lstm_nonlin
+    monkeypatch.setattr(TL, "_lstm_nonlin",
+                        lambda g, *a: (seen.append(g), nonlin(g, *a))[1])
+    to_t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+    tp = TL.lstm_prepare(jax.tree_util.tree_map(to_t, p))
+    th, tc = TL.lstm_cell_prepared(tp, to_t(x), to_t(h), to_t(c))
+    assert seen[0].dtype == torch.float32 and th.dtype == torch.bfloat16
+    _check(seen[0], j_gates)
+    for t_out, j_out in ((th, jh), (tc, jc)):
+        np.testing.assert_allclose(t_out.float().numpy(),
+                                   np.asarray(j_out, np.float32), rtol=8e-3,
+                                   atol=1e-3)
+
+
 def test_lstm_cell_quant_stacked():
     ps = [JL.lstm_prepare(JL.lstm_cell_init(jax.random.PRNGKey(7 + i), 9, 6))
           for i in range(2)]
