@@ -7,14 +7,20 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It builds every kernel of
 the port from ``tacotron2_subword_tpu_torch/csrc`` and drives both paths of
 the port at full width:
 
- - serving: K1 against its plain version, 4 requests served (int8 decode
-   -> postnet -> HiFi-GAN) with K1's launches counted, a profile of the
-   decode loop, the f32 decode on the card against the CPU, and the cost of
-   the f32 LSTM gates on the non-quantized bf16 decode;
- - training: K2 and K3 against their plain versions (bit-equal across two
-   runs), the soft-DTW train step (B=8, T_out=128, bench.py's batch) with
-   K2's and K3's launches counted, a profile of one step, one f32 train step
-   on the card against the CPU, and the training CLI up to validation.
+ - serving: K1 against its plain version (two runs bit-equal, its PTX
+   holding mma.sync, warm and cold-L2 times), 4 requests served (int8
+   decode -> postnet -> HiFi-GAN) with K1's launches counted, a profile of
+   the decode loop (no split-K reduce kernel), the f32 decode on the card
+   against the CPU, and the cost of the f32 LSTM gates on the
+   non-quantized bf16 decode;
+ - training: K2 (both variants: shared memory, and the global one forced)
+   and K3 against their plain versions (bit-equal across two runs), the
+   soft-DTW train step (B=8, T_out=128, bench.py's batch) with K2's and
+   K3's launches counted, a profile of one step, one f32 train step on the
+   card against the CPU, and the training CLI up to validation.
+
+``python3 chip_smoke.py --k1-splits`` builds the kernels and times K1 at
+every number of K splits instead (the table behind ``ops/quant.k1_plan``).
 
 Any failure raises, so the exit code is not 0.  The line before the last
 names the card and its power limit; the last is one JSON object naming the
@@ -80,12 +86,43 @@ def k1_bound_ms(S, B, K, N, x_dtype):
                                        else "operations")
 
 
+def cold_ms(fn, iters: int = 20) -> float:
+    """Median device ms of one call of ``fn`` with a cold L2: 256 MB (five
+    times the 50 MB L2) are written before each call, and CUDA events
+    bracket the call alone.  A 0.5 ms spin after the memset keeps the card
+    busy while the host queues the events and the call behind it, so no
+    host time falls between the events."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)   # ~0.5 ms at 1.98 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del flush
+    return float(np.median(times))
+
+
 def phase_k1(Q, dev):
     """K1 against its plain version at the main path's shapes and at ragged
     ones, with times.  Tolerance: both versions sum the same products in
     f32 (bf16 x int8 products are exact in f32), so only the order of the
-    sum differs: max|d| <= 1e-4 * max|ref| (f32 x), 2e-3 * max|ref| (bf16 x).
-    """
+    sum differs: max|d| <= 1e-4 * max|ref| (f32 x), 2e-3 * max|ref| (bf16 x:
+    tensor-core sums).  Each case runs twice and must be bit-equal.  The
+    bf16 kernel's PTX must hold mma.sync (or wgmma).  Warm times are CUDA-
+    graph replays (the weights stay in L2), cold ones flush L2 first."""
+    from tacotron2_subword_tpu_torch.ops import _build
+    ptx = _build.ptx(Q.KERNEL)
+    mma = {"mma.sync": ptx.count("mma.sync"), "wgmma": ptx.count("wgmma")}
+    if not (mma["mma.sync"] or mma["wgmma"]):
+        raise AssertionError("K1's PTX holds no mma.sync / wgmma")
+    print("K1 ptx", json.dumps(mma))
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     cases = [(S, K, N, B, dt)
@@ -93,12 +130,15 @@ def phase_k1(Q, dev):
              for B in (1, 4, 8, 128)
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(2, 46, 80, 3, torch.float32), (2, 46, 80, 3, torch.bfloat16),
-              (1, 37, 83, 5, torch.bfloat16), (3, 300, 130, 9, torch.float32)]
+              (1, 37, 83, 5, torch.bfloat16), (3, 300, 130, 9, torch.float32),
+              (3, 300, 130, 9, torch.bfloat16),
+              (2, 1792, 4096, 129, torch.bfloat16)]
     for S, K, N, B, dt in cases:
         x = torch.randn((S, B, K), generator=gen, device=dev).to(dt)
         w = torch.randn((S, K, N), generator=gen, device=dev)
         w_q, scale = Q.quantize_int8(w, axis=1)
         y = Q.matmul_dequant_int8(x, w_q, scale)
+        y_again = Q.matmul_dequant_int8(x, w_q, scale)
         ref = Q.matmul_dequant_int8_plain(x, w_q, scale)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
@@ -108,13 +148,18 @@ def phase_k1(Q, dev):
             raise AssertionError(
                 f"K1 disagrees at S={S} B={B} K={K} N={N} {dt}: "
                 f"max|d|={err} > tol {tol}")
+        if not torch.equal(y, y_again):
+            raise AssertionError(f"K1 not deterministic at S={S} B={B} "
+                                 f"K={K} N={N} {dt}")
         row = {"S": S, "B": B, "K": K, "N": N,
                "x": "bf16" if dt == torch.bfloat16 else "f32",
                "max_abs_err": err, "tol": tol}
-        if K >= 1792:
+        if K >= 1792 and B <= 128:
             iters = 20 if B >= 128 else 50
             row["ms"] = device_ms(lambda: Q.matmul_dequant_int8(x, w_q, scale),
                                 iters)
+            row["cold_ms"] = cold_ms(
+                lambda: Q.matmul_dequant_int8(x, w_q, scale))
             row["plain_ms"] = device_ms(
                 lambda: Q.matmul_dequant_int8_plain(x, w_q, scale), iters)
             row["bound_ms"], row["bound_by"] = k1_bound_ms(S, B, K, N, dt)
@@ -128,6 +173,55 @@ def phase_k1(Q, dev):
                                             iters)
         rows.append(row)
         print("K1", json.dumps(row))
+    return rows
+
+
+def k1_split_sweep(Q, dev):
+    """K1 (bf16 x) at the decode's two shapes, B=4 and B=128, at every
+    number of K splits that leaves no split empty (1-8, the plan's and the
+    ones it skips): device ms per call, CUDA-graph replay, warm L2, each
+    result checked against the plain version.  ``python3 chip_smoke.py
+    --k1-splits`` prints it; the plain run does not."""
+    import ctypes
+    lib = Q._lib()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for S, K, N in ((2, 1792, 4096), (1, 4096, 4096)):
+        for B in (4, 128):
+            x = torch.randn((S, B, K), generator=gen, device=dev).bfloat16()
+            w_q, scale = Q.quantize_int8(
+                torch.randn((S, K, N), generator=gen, device=dev), axis=1)
+            y = torch.empty((S, B, N), device=dev)
+            ref = Q.matmul_dequant_int8_plain(x, w_q, scale)
+            plan = Q.k1_plan(S, B, K, N, True,
+                             torch.cuda.get_device_properties(dev)
+                             .multi_processor_count,
+                             lambda bt, s: Q._max_clusters(lib, dev, bt, s))
+            units = -(-K // Q.TC_TILE_K)
+            for s in range(1, Q.MAX_CLUSTER + 1):
+                per = -(-units // s)
+                if -(-units // per) != s:
+                    continue
+                call = lambda: lib.t2s_dequant_int8_matmul(
+                    x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                    y.data_ptr(), S, B, K, N, 1, plan.bt, s,
+                    per * Q.TC_TILE_K, ctypes.c_void_p(stream()))
+                if call() != 0:
+                    raise AssertionError(f"K1 split sweep: launch failed at "
+                                         f"S={S} B={B} splits={s}")
+                torch.cuda.synchronize()
+                err = (y - ref).abs().max().item()
+                if err > 2e-3 * ref.abs().max().item():
+                    raise AssertionError(f"K1 split sweep: S={S} B={B} "
+                                         f"splits={s}: max|d| {err}")
+                row = {"S": S, "B": B, "K": K, "N": N, "splits": s,
+                       "blocks": S * (-(-N // Q.TC_TILE_N))
+                       * (-(-B // plan.bt)) * s,
+                       "ms": device_ms(call, 50),
+                       "chosen": s == plan.splits}
+                rows.append(row)
+                print("k1 split", json.dumps(row))
     return rows
 
 
@@ -176,11 +270,14 @@ def sdtw_bound_ms(B, N, M, bandwidth, grad: bool):
 
 
 def phase_softdtw(SD, dev):
-    """K2 and K3 against their plain versions, each kernel run twice and
-    required bit-equal (a missing barrier shows as run-to-run drift).
-    Tolerances: both sides do the same f32 operations in the same order, so
-    only the exp/log of the two builds may differ: |d value| <= 1e-5 *
-    max(1, |value|), |d E| <= 1e-5; E is exactly 0 outside the band."""
+    """K2 (both variants: shared memory where it fits, and the global one
+    forced at every shape) and K3 against their plain versions, each kernel
+    run twice and required bit-equal (a missing barrier shows as run-to-run
+    drift).  Tolerances: both sides do the same f32 operations in the same
+    order, so only the exp/log of the two builds may differ: |d value| <=
+    1e-5 * max(1, |value|), |d E| <= 1e-5; E is exactly 0 outside the band.
+    Times per call and per serial diagonal (2 (N+M-1) for K2, N+M-1 for
+    K3)."""
     rows = []
     for (B, N, M), bw in SDTW_CASES:
         gen = torch.Generator(device=dev).manual_seed(B * 1000 + N + M)
@@ -188,40 +285,57 @@ def phase_softdtw(SD, dev):
         x = torch.randn((B, N, dim), generator=gen, device=dev)
         y = torch.randn((B, M, dim), generator=gen, device=dev)
         D = SD.euclidean_dist_matrix(x, y).contiguous()
-        v2, E2 = SD.softdtw_grad(D, 1.0, bw)
-        v2b, E2b = SD.softdtw_grad(D, 1.0, bw)
-        v3 = SD.softdtw_value(D, 1.0, bw)
-        v3b = SD.softdtw_value(D, 1.0, bw)
         pv, pE = SD.softdtw_grad_plain(D, 1.0, bw)
         pv3 = SD.softdtw_value_plain(D, 1.0, bw)
-        torch.cuda.synchronize()
-        if not (torch.equal(v2, v2b) and torch.equal(E2, E2b)
-                and torch.equal(v3, v3b)):
-            raise AssertionError(f"soft-DTW kernels not deterministic at "
-                                 f"{(B, N, M)} bw={bw}")
-        vtol = 1e-5 * torch.clamp_min(pv.abs(), 1.0)
-        errs = {"k2_value": (v2 - pv).abs().max().item(),
-                "k2_E": (E2 - pE).abs().max().item(),
-                "k3_value": (v3 - pv3).abs().max().item()}
         banned = ~SD.band_mask(N, M, bw, dev)
-        banned_zero = bool((E2[:, banned] == 0).all())
-        if not (((v2 - pv).abs() <= vtol).all()
-                and ((v3 - pv3).abs() <= vtol).all()
-                and errs["k2_E"] <= 1e-5 and torch.isfinite(E2).all()
-                and banned_zero):
-            raise AssertionError(f"soft-DTW kernels disagree at {(B, N, M)} "
-                                 f"bw={bw}: {errs}")
-        row = {"B": B, "N": N, "M": M, "bandwidth": bw, **errs,
-               "value_max": pv.abs().max().item()}
+        vtol = 1e-5 * torch.clamp_min(pv.abs(), 1.0)
+        chosen = SD.k2_plan(B, N, M).variant
+        row = {"B": B, "N": N, "M": M, "bandwidth": bw,
+               "k2_variant": chosen, "value_max": pv.abs().max().item()}
+        for variant in ("shared", "global"):
+            if variant == "shared" and chosen != "shared":
+                continue
+            v2, E2 = SD.softdtw_grad(D, 1.0, bw, variant=variant)
+            v2b, E2b = SD.softdtw_grad(D, 1.0, bw, variant=variant)
+            torch.cuda.synchronize()
+            if not (torch.equal(v2, v2b) and torch.equal(E2, E2b)):
+                raise AssertionError(f"K2 ({variant}) not deterministic at "
+                                     f"{(B, N, M)} bw={bw}")
+            ev, eE = (v2 - pv).abs().max().item(), (E2 - pE).abs().max().item()
+            if not (((v2 - pv).abs() <= vtol).all() and eE <= 1e-5
+                    and torch.isfinite(E2).all()
+                    and bool((E2[:, banned] == 0).all())):
+                raise AssertionError(f"K2 ({variant}) disagrees at "
+                                     f"{(B, N, M)} bw={bw}: {ev}, {eE}")
+            key = "k2" if variant == chosen else f"k2_{variant}"
+            row[f"{key}_value"], row[f"{key}_E"] = ev, eE
+            row[f"{key}_bit_equal"] = bool(torch.equal(v2, pv)
+                                           and torch.equal(E2, pE))
+        v3 = SD.softdtw_value(D, 1.0, bw)
+        v3b = SD.softdtw_value(D, 1.0, bw)
+        torch.cuda.synchronize()
+        if not torch.equal(v3, v3b):
+            raise AssertionError(f"K3 not deterministic at {(B, N, M)}")
+        row["k3_value"] = (v3 - pv3).abs().max().item()
+        if not ((v3 - pv3).abs() <= vtol).all():
+            raise AssertionError(f"K3 disagrees at {(B, N, M)} bw={bw}: "
+                                 f"{row['k3_value']}")
         if N >= 128 and N == M and B == 8:
             P = N + M - 1
-            row["k2_ms"] = device_ms(lambda: SD.softdtw_grad(D, 1.0, bw), 20)
+            for variant in ("shared", "global"):
+                if variant == "shared" and chosen != "shared":
+                    continue
+                key = "k2" if variant == chosen else f"k2_{variant}"
+                row[f"{key}_ms"] = device_ms(
+                    lambda: SD.softdtw_grad(D, 1.0, bw, variant=variant), 20)
+                row[f"{key}_us_per_diagonal"] = row[f"{key}_ms"] * 1e3 / (2 * P)
             row["k2_plain_ms"] = device_ms(
                 lambda: SD.softdtw_grad_plain(D, 1.0, bw), 2)
             row["k2_bound_ms"], row["k2_bound_by"] = sdtw_bound_ms(
                 B, N, M, bw, True)
             row["k2_serial_diagonals"] = 2 * P
             row["k3_ms"] = device_ms(lambda: SD.softdtw_value(D, 1.0, bw), 20)
+            row["k3_us_per_diagonal"] = row["k3_ms"] * 1e3 / P
             row["k3_plain_ms"] = device_ms(
                 lambda: SD.softdtw_value_plain(D, 1.0, bw), 2)
             row["k3_bound_ms"], row["k3_bound_by"] = sdtw_bound_ms(
@@ -307,10 +421,12 @@ PROFILE_STEPS = 32
 def phase_profile(TM, TI, params, bn, cfg, dev):
     """Where a decode step's time goes (torch.profiler, CUDA activity): the
     decoder loop alone at B=4 and B=128, its wall time per step, the
-    device-busy share of that wall time, and the kernels with the most
-    device time."""
+    device-busy share of that wall time, K1's device time and launches per
+    step, and the kernels with the most device time.  Fails if a split-K
+    reduce kernel ran (K1 is one launch per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    rows = []
     for lengths in (REQUESTS, [(64, 32)] * 128):
         text, sub, cls_p, cls_s, t_len, s_len = TI.pad_requests(
             make_requests(cfg, lengths, seed=7), dev)
@@ -341,18 +457,28 @@ def phase_profile(TM, TI, params, bn, cfg, dev):
             wall = time.perf_counter() - t0
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
+        if any("splitk_reduce" in e.key for e in kern):
+            raise AssertionError("profile: a split-K reduce kernel ran; K1 "
+                                 "must be one launch per call")
+        k1 = [e for e in kern if "dequant_int8_matmul" in e.key]
         dev_us = sum(e.self_device_time_total for e in kern)
         top = sorted(kern, key=lambda e: e.self_device_time_total,
                      reverse=True)[:6]
-        print("profile", json.dumps({
+        row = {
             "B": len(lengths), "steps": PROFILE_STEPS,
             "wall_us_per_step": wall / PROFILE_STEPS * 1e6,
             "device_us_per_step": dev_us / PROFILE_STEPS,
             "device_busy_share": dev_us / (wall * 1e6),
             "kernel_launches_per_step": sum(e.count for e in kern) / PROFILE_STEPS,
+            "k1_us_per_step": sum(e.self_device_time_total for e in k1)
+            / PROFILE_STEPS,
+            "k1_launches_per_step": sum(e.count for e in k1) / PROFILE_STEPS,
             "top_kernels_us_per_step": [
                 [e.key[:70], e.self_device_time_total / PROFILE_STEPS] for e in top],
-        }))
+        }
+        rows.append(row)
+        print("profile", json.dumps(row))
+    return rows
 
 
 def phase_whole_path(TM, TI, params_cpu, bn_cpu, cfg, dev):
@@ -663,6 +789,14 @@ def main() -> int:
     print(f"build: {build_s:.2f} s; torch {torch.__version__} "
           f"(CUDA {torch.version.cuda}); gpu: {gpu}")
 
+    if "--k1-splits" in sys.argv[1:]:
+        k1_split_sweep(Q, dev)
+        print(gpu)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     # 2. each kernel against its plain version
     k1_rows = phase_k1(Q, dev)
 
@@ -675,7 +809,7 @@ def main() -> int:
     params, bn = to_device(params_cpu, dev), to_device(bn_cpu, dev)
     launches = phase_serve(Q, TM, TI, params, bn, gen_params, cfg, h, dev,
                            gpu)
-    phase_profile(TM, TI, params, bn, cfg, dev)
+    profile_rows = phase_profile(TM, TI, params, bn, cfg, dev)
 
     # 4. the whole decode on the card against the CPU
     phase_whole_path(TM, TI, params_cpu, bn_cpu, cfg, dev)
@@ -692,22 +826,38 @@ def main() -> int:
     phase_train_cli(SD)
 
     # 6. the kernels line: K1 per decoder step of the served batch (B=4,
-    #    bf16 x): the attention-LSTM call plus the decoder-LSTM call; K2
-    #    and K3 at the train step's shape, 8 x 128 x 128
-    step = [r for r in k1_rows if r["B"] == len(REQUESTS) and r["x"] == "bf16"
-            and "ms" in r]
+    #    bf16 x): the attention-LSTM call plus the decoder-LSTM call, and the
+    #    same at B=128; K2 and K3 at the train step's shape, 8 x 128 x 128
+    def k1_step(B):
+        step = [r for r in k1_rows if r["B"] == B and r["x"] == "bf16"
+                and "ms" in r]
+        out = {}
+        for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "library_ms",
+                    "dense_bmm_ms"):
+            vals = [r[key] for r in step]
+            out[key] = None if None in vals else sum(vals)
+        out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                          for r in step) else "operations")
+        out["max_abs_err"] = max(r["max_abs_err"] for r in step)
+        return out
+    step4, step128 = k1_step(len(REQUESTS)), k1_step(128)
     k1 = {"name": "dequant_int8_matmul", "route": "cuda",
           "source": "tacotron2_subword_tpu_torch/csrc/dequant_int8_matmul.cu",
           "replaces": "tacotron2_subword_tpu/ops/quant.py:74",
           "launches": launches,
-          "max_abs_err": max(r["max_abs_err"] for r in step)}
-    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-        vals = [r[key] for r in step]
-        k1[key] = None if None in vals else sum(vals)
-    k1["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in step) \
-        else "operations"
-    k1["per"] = ("decoder step at B=4, bf16 x: (S=2,K=1792,N=4096) + "
-                 "(S=1,K=4096,N=4096)")
+          "max_abs_err": max(r["max_abs_err"] for r in k1_rows
+                             if r["x"] == "bf16"),
+          **{k: step4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+          "cold_ms": step4["cold_ms"], "dense_bmm_ms": step4["dense_bmm_ms"],
+          "b128": step128,
+          "per": ("decoder step, bf16 x: (S=2,K=1792,N=4096) + "
+                  "(S=1,K=4096,N=4096); top level at B=4, b128 at B=128; "
+                  "ms warm L2, cold_ms after a 256 MB flush"),
+          "decode_loop": [{k: r[k] for k in (
+              "B", "k1_us_per_step", "k1_launches_per_step",
+              "device_us_per_step", "kernel_launches_per_step")}
+              for r in profile_rows]}
     main_row = next(r for r in sdtw_rows if (r["B"], r["N"], r["M"])
                     == (TRAIN_B, TRAIN_T_OUT, TRAIN_T_OUT))
     no_library = ("no single PyTorch call computes soft-DTW (a wavefront "
@@ -717,8 +867,10 @@ def main() -> int:
             ("softdtw_grad", "k2", "t2s_softdtw_grad", k2_launches),
             ("softdtw_fwd", "k3", "t2s_softdtw_fwd", k3_launches)):
         errs = [r[f"{key}_value"] for r in sdtw_rows] + (
-            [r["k2_E"] for r in sdtw_rows] if key == "k2" else [])
-        sdtw.append({
+            [r[k] for r in sdtw_rows for k in ("k2_E", "k2_global_value",
+                                               "k2_global_E") if k in r]
+            if key == "k2" else [])
+        entry = {
             "name": name, "route": "cuda",
             "source": "tacotron2_subword_tpu_torch/csrc/softdtw.cu",
             "replaces": ("tacotron2_subword_tpu/ops/softdtw.py:357"
@@ -730,9 +882,14 @@ def main() -> int:
             "bound_by": main_row[f"{key}_bound_by"], "library_ms": None,
             "library": no_library,
             "serial_diagonals": main_row[f"{key}_serial_diagonals"],
+            "us_per_diagonal": main_row[f"{key}_us_per_diagonal"],
             "per": (f"one call at B={TRAIN_B}, N=M={TRAIN_T_OUT} "
                     f"({'train' if key == 'k2' else 'eval'} step)"),
-            "entry": fn})
+            "entry": fn}
+        if key == "k2":
+            entry["variant"] = main_row["k2_variant"]
+            entry["global_variant_ms"] = main_row["k2_global_ms"]
+        sdtw.append(entry)
     print(json.dumps({"kernels": [k1] + sdtw}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``_kbuild/lib<name>-<hash>.so`` for ``sm_90a`` (Hopper), at first use.
-The hash covers the source and the flags, so an edited source is rebuilt
+The hash covers the source, every ``*.cu``/``*.cuh`` under ``csrc/`` that
+it may include, and the flags, so an edited source or header is rebuilt
 and an unchanged one is loaded from the build directory.  ``build`` starts
 one ``nvcc`` per source, all at once, and waits for them together.
 
@@ -44,10 +45,12 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def _lib_path(name: str, csrc: Path = CSRC_DIR) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((csrc / f"{name}.cu").read_bytes())
+    for f in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
@@ -77,6 +80,27 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def ptx(name: str) -> str:
+    """The PTX of kernel ``name`` (``nvcc -ptx`` with the build's target,
+    language standard and optimisation), to show which instructions it
+    asks of the card."""
+    arch = NVCC_FLAGS[1].split(",")[0]          # arch=compute_90a
+    flags = ["-gencode", f"{arch},code={arch.split('=')[1]}", "-std=c++17",
+             "-O3"]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}.{os.getpid()}.ptx"
+    proc = subprocess.run([_nvcc(), *flags, "-ptx", "-o", str(out),
+                           str(CSRC_DIR / f"{name}.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -ptx {name}: exit {proc.returncode}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    try:
+        return out.read_text()
+    finally:
+        out.unlink()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,15 +8,18 @@ each product of a bf16 value and an int8 value is exact in f32, so the only
 error is the weight rounding itself.
 
 ``matmul_dequant_int8`` launches the hand-written CUDA kernel K1
-(``csrc/dequant_int8_matmul.cu``) for CUDA tensors and takes the plain torch
-version only for tensors on the CPU.  ``launches`` counts the kernel's
-launches.
+(``csrc/dequant_int8_matmul.cu``: tensor cores for bf16 x, CUDA cores for
+f32 x) for CUDA tensors and takes the plain torch version only for tensors
+on the CPU.  ``k1_plan`` makes the launch's host-side choices: rows of B per
+block and the number of K splits, whose partial sums meet inside one
+thread-block cluster, so a call is one launch and needs no workspace.
+``launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,6 +67,87 @@ def _check_args(x, w_q, scale):
                         f"{scale.dtype}")
 
 
+class K1Plan(NamedTuple):
+    """One K1 launch: ``bt`` rows of B per block, K cut into ``splits``
+    ranges of ``k_per_split`` (the blocks of one output tile form a cluster
+    of ``splits``), ``blocks`` in the grid."""
+    bt: int
+    splits: int
+    k_per_split: int
+    blocks: int
+
+
+MAX_CLUSTER = 8          # portable thread-block cluster size
+TC_TILE_N, TC_TILE_K = 128, 64   # bf16 x: columns of N per block, k per stage
+F32_TILE_N, F32_CHUNK_K = 128, 256
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# K splits tried for bf16 x: the size of the thread-block cluster.  4 and
+# 8 are left out: at (S, K, N) = (1, 4096, 4096) each took 1.06-1.27x the
+# time of both its neighbours on the H100 (PERF.md, K1 split sweep).
+TC_SPLITS = (1, 2, 3, 5, 6, 7)
+
+
+def _default_capacity(sms: int) -> Callable[[int, int], int]:
+    """Clusters of s blocks that fit at once when an SM holds two blocks,
+    without the card's placement limits: the CPU's stand-in for
+    ``cudaOccupancyMaxActiveClusters``."""
+    return lambda bt, s: (2 * sms) // s
+
+
+def k1_plan(S: int, B: int, K: int, N: int, x_bf16: bool, sms: int = 132,
+            capacity: Optional[Callable[[int, int], int]] = None) -> K1Plan:
+    """The launch K1 makes for this shape on a card with ``sms`` SMs.
+
+    bf16 x: the smallest of 8/16/32/64/128 rows covering B (128 beyond); K
+    cut into s of ``TC_SPLITS`` ranges of whole 64-row tiles, none empty,
+    with all blocks in one wave (``capacity(bt, s)`` clusters at once), at
+    the least (tiles per block) x (blocks per SM), the larger s on a tie.
+    f32 x: 1/2/4/8 rows; K split in 256-row chunks until there are about
+    two blocks per SM, at most 8 splits (one cluster)."""
+    if not x_bf16:
+        bt = 8 if B >= 8 else 4 if B >= 4 else 2 if B >= 2 else 1
+        tiles = S * _cdiv(N, F32_TILE_N) * _cdiv(B, bt)
+        units = max(1, _cdiv(K, F32_CHUNK_K))
+        splits = max(1, min(MAX_CLUSTER, units,
+                            _cdiv(2 * sms, max(tiles, 1))))
+        per = _cdiv(units, splits)
+        splits = _cdiv(units, per)
+        return K1Plan(bt, splits, per * F32_CHUNK_K, tiles * splits)
+    bt = next((t for t in (8, 16, 32, 64) if B <= t), 128)
+    tiles = S * _cdiv(N, TC_TILE_N) * _cdiv(B, bt)
+    units = max(1, _cdiv(K, TC_TILE_K))
+    capacity = capacity or _default_capacity(sms)
+    best = (units * _cdiv(tiles, sms), 1, units)
+    for s in TC_SPLITS[1:]:
+        per = _cdiv(units, s)
+        if s > units or _cdiv(units, per) != s:
+            continue          # a split would be empty
+        if tiles * s > capacity(bt, s) * s:
+            continue          # not one wave
+        cost = per * _cdiv(tiles * s, sms)
+        if cost <= best[0]:
+            best = (cost, s, per)
+    _, splits, per = best
+    return K1Plan(bt, splits, per * TC_TILE_K, tiles * splits)
+
+
+_sm_counts = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 def matmul_dequant_int8(x: torch.Tensor, w_q: torch.Tensor,
                         scale: torch.Tensor) -> torch.Tensor:
     """Stacked weight-dequantizing matmul: x [S,B,K] (bf16 or f32) x w_q
@@ -86,29 +170,50 @@ def matmul_dequant_int8(x: torch.Tensor, w_q: torch.Tensor,
     y = torch.empty((S, B, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
+    bf16 = x.dtype == torch.bfloat16
     lib = _lib()
+    key = (x.device.index, S, B, K, N, bf16)
+    plan = _plans.get(key)
+    if plan is None:   # the decode asks for the same few shapes every step
+        plan = _plans[key] = k1_plan(
+            S, B, K, N, bf16, _sm_count(x.device),
+            lambda bt, s: _max_clusters(lib, x.device, bt, s))
     with torch.cuda.device(x.device):
-        n_ws = lib.t2s_dequant_int8_matmul_workspace(S, B, K, N)
-        ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
-              if n_ws else None)
         code = lib.t2s_dequant_int8_matmul(
             x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            None if ws is None else ws.data_ptr(), S, B, K, N,
-            int(x.dtype == torch.bfloat16),
+            S, B, K, N, int(bf16), plan.bt, plan.splits, plan.k_per_split,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "dequant_int8_matmul")
     launches += 1
     return y
 
 
+_clusters = {}
+_plans = {}
+
+
+def _max_clusters(lib: ctypes.CDLL, device: torch.device, bt: int,
+                  s: int) -> int:
+    """Clusters of s blocks of the bf16 kernel at row tile bt that the card
+    holds at once (cudaOccupancyMaxActiveClusters), cached."""
+    key = (device.index, bt, s)
+    if key not in _clusters:
+        with torch.cuda.device(device):
+            n = lib.t2s_k1_max_active_clusters(bt, s)
+        if n < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for "
+                               f"bt={bt}, cluster {s}")
+        _clusters[key] = n
+    return _clusters[key]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
     fn = lib.t2s_dequant_int8_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        wsq = lib.t2s_dequant_int8_matmul_workspace
-        wsq.argtypes = [ctypes.c_int] * 4
-        wsq.restype = ctypes.c_longlong
+        lib.t2s_k1_max_active_clusters.argtypes = [ctypes.c_int] * 2
+        lib.t2s_k1_max_active_clusters.restype = ctypes.c_int
     return lib

@@ -12,7 +12,9 @@ INF is the finite sentinel 1e30, so only f32 is taken.
 
  - ``softdtw_grad(D, gamma, bw) -> (value, E)`` launches K2
    (``csrc/softdtw.cu`` ``t2s_softdtw_grad``, forward and backward in one
-   launch) for a CUDA tensor;
+   launch) for a CUDA tensor; ``k2_plan`` picks its variant: R, D and E in
+   shared memory where they fit in a block's 227 KB (128 x 128), else R in
+   a device-memory workspace (allocated only then);
  - ``softdtw_value(D, gamma, bw) -> value`` launches K3
    (``t2s_softdtw_fwd``, forward only) for a CUDA tensor;
  - ``softdtw_diff`` is differentiable: where D needs a gradient its forward
@@ -28,7 +30,7 @@ A CPU tensor takes the kernels' plain versions (``softdtw_grad_plain``,
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -176,24 +178,80 @@ def _on_cuda(D: torch.Tensor) -> bool:
     return True
 
 
-def softdtw_grad(D: torch.Tensor, gamma: float = 1.0,
-                 bandwidth: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+# Dynamic shared memory one block may use on Hopper (227 KB).
+SMEM_LIMIT = 232448
+
+
+class K2Plan(NamedTuple):
+    """K2's launch for one shape: the shared variant (``shared``) or the
+    global one with ``workspace_floats`` of scratch for R; the backward's
+    weights ``chunk`` diagonals at a time; ``smem_bytes`` of dynamic shared
+    memory."""
+    shared: bool
+    chunk: int
+    smem_bytes: int
+    workspace_floats: int
+
+    @property
+    def variant(self) -> str:
+        return "shared" if self.shared else "global"
+
+
+def _even(n: int) -> int:
+    return n + (n & 1)
+
+
+K2_CHUNK = 16  # most diagonals whose backward weights are made at once
+
+
+def k2_plan(B: int, N: int, M: int, variant: Optional[str] = None) -> K2Plan:
+    """The shared variant where D and E [N, even(M)], the bordered R
+    [N+2, even(M+2)] (f32; even row strides keep a diagonal walk free of
+    bank conflicts) and the double-buffered weights of at least one
+    diagonal [2, 3, N] fit in ``SMEM_LIMIT``; else the global one, with an
+    R workspace of B (N+2) (M+2) floats.  The weight buffer takes up to
+    ``K2_CHUNK`` diagonals per half, as many as fit.  ``variant``
+    ("shared", "global") forces one; a variant that does not fit raises."""
+    if variant not in (None, "shared", "global"):
+        raise ValueError(f"variant must be shared or global, got {variant!r}")
+    base = 4 * (2 * N * _even(M) + (N + 2) * _even(M + 2))
+    per_diag = 24 * N
+    fits = base + per_diag <= SMEM_LIMIT
+    if variant == "shared" and not fits:
+        raise ValueError(f"K2 shared variant needs {base + per_diag} B of "
+                         f"shared memory at {N} x {M}; a block has "
+                         f"{SMEM_LIMIT}")
+    if variant == "shared" or (variant is None and fits):
+        chunk = min(K2_CHUNK, (SMEM_LIMIT - base) // per_diag)
+        return K2Plan(True, chunk, base + per_diag * chunk, 0)
+    if per_diag > SMEM_LIMIT:
+        raise ValueError(f"K2 takes N <= {SMEM_LIMIT // 24}, got {N}")
+    chunk = min(K2_CHUNK, SMEM_LIMIT // per_diag)
+    return K2Plan(False, chunk, per_diag * chunk, B * (N + 2) * (M + 2))
+
+
+def softdtw_grad(D: torch.Tensor, gamma: float = 1.0, bandwidth: float = 0.0,
+                 variant: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(value [B], E = d value / d D [B,N,M]) for D [B,N,M] f32: K2 on a
-    CUDA tensor, its plain version on a CPU tensor."""
+    CUDA tensor (the variant ``k2_plan`` picks, or ``variant``), its plain
+    version on a CPU tensor."""
     global grad_launches
     if not _on_cuda(D):
         return softdtw_grad_plain(D, gamma, bandwidth)
     B, N, M = D.shape
+    plan = k2_plan(B, N, M, variant)
     value = torch.empty((B,), dtype=torch.float32, device=D.device)
     E = torch.empty((B, N, M), dtype=torch.float32, device=D.device)
-    ws = torch.empty((B * (N + 2) * (M + 2),), dtype=torch.float32,
-                     device=D.device)
+    ws = (torch.empty((plan.workspace_floats,), dtype=torch.float32,
+                      device=D.device) if plan.workspace_floats else None)
     lib = _lib()
     with torch.cuda.device(D.device):
         code = lib.t2s_softdtw_grad(
-            D.data_ptr(), ws.data_ptr(), E.data_ptr(), value.data_ptr(),
-            B, N, M, float(gamma), float(bandwidth or 0.0),
-            torch.cuda.current_stream(D.device).cuda_stream)
+            D.data_ptr(), None if ws is None else ws.data_ptr(),
+            E.data_ptr(), value.data_ptr(), B, N, M, float(gamma),
+            float(bandwidth or 0.0), int(plan.shared), plan.chunk,
+            plan.smem_bytes, torch.cuda.current_stream(D.device).cuda_stream)
     _build.check(lib, code, "softdtw_grad")
     grad_launches += 1
     return value, E
@@ -293,8 +351,9 @@ def _lib() -> ctypes.CDLL:
     if lib.t2s_softdtw_grad.argtypes is None:
         f = ctypes.c_float
         lib.t2s_softdtw_grad.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [f, f,
-                                                          ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [f, f, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_void_p])
         lib.t2s_softdtw_grad.restype = ctypes.c_int
         lib.t2s_softdtw_fwd.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [f, f,

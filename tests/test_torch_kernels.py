@@ -6,6 +6,8 @@ also runs on a machine with a card and without JAX:
 The tests marked ``cuda`` build and launch the CUDA kernels and skip where
 there is no CUDA device."""
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -111,5 +113,121 @@ def test_softdtw_kernels_match_plain_on_card(cuda_device, shape, bw):
     assert ((v - pv).abs() <= tol).all() and ((v3 - pv).abs() <= tol).all()
     assert (E - pE).abs().max().item() <= 1e-5
     assert torch.isfinite(E).all()
+    banned = ~TS.band_mask(N, M, bw, cuda_device)
+    assert (E[:, banned] == 0).all()
+
+
+# ---- host-side decisions (CPU) -------------------------------------------
+
+@pytest.mark.parametrize("N,M,variant", [(128, 128, "shared"),
+                                         (256, 256, "global"),
+                                         (1100, 900, "global")])
+def test_k2_fit_guard_and_workspace(N, M, variant):
+    """K2 keeps D, R, E in shared memory where they fit in a block's 227 KB
+    (the train step's 128 x 128) and asks for an R workspace only for the
+    global variant (the CLI's 256 x 256 bucket, long utterances)."""
+    B = 8
+    plan = TS.k2_plan(B, N, M)
+    assert plan.variant == variant
+    assert 0 < plan.smem_bytes <= TS.SMEM_LIMIT and plan.chunk >= 1
+    if variant == "shared":
+        assert plan.workspace_floats == 0
+        # D and E [N, even(M)], R [N+2, even(M+2)], weights [2, chunk, 3, N]
+        assert plan.smem_bytes == 4 * (2 * N * M + (N + 2) * (M + 2)
+                                       + 6 * N * plan.chunk)
+    else:
+        assert plan.workspace_floats == B * (N + 2) * (M + 2)
+        assert plan.smem_bytes == 24 * N * plan.chunk
+        with pytest.raises(ValueError):
+            TS.k2_plan(B, N, M, variant="shared")
+    forced = TS.k2_plan(B, N, M, variant="global")
+    assert forced.variant == "global"
+    assert forced.workspace_floats == B * (N + 2) * (M + 2)
+
+
+@pytest.mark.parametrize("S,B,K,N,splits", [(2, 4, 1792, 4096, 2),
+                                            (1, 4, 4096, 4096, 7),
+                                            (2, 128, 1792, 4096, 2),
+                                            (1, 128, 4096, 4096, 7),
+                                            (2, 129, 1792, 4096, 2),
+                                            (3, 9, 300, 130, 5),
+                                            (1, 5, 37, 83, 1)])
+def test_k1_plan_one_launch_no_workspace(S, B, K, N, splits):
+    """One K1 call is one launch: K is cut into ranges of whole tiles that
+    are none of them empty, whose partial sums meet inside one cluster (at
+    most 8 blocks), all blocks in one wave; no workspace is asked for."""
+    plan = TQ.k1_plan(S, B, K, N, x_bf16=True, sms=132)
+    assert "workspace" not in " ".join(TQ.K1Plan._fields)
+    assert plan.splits == splits and plan.splits in TQ.TC_SPLITS
+    assert plan.k_per_split % TQ.TC_TILE_K == 0
+    assert (plan.splits - 1) * plan.k_per_split < max(K, 1)
+    assert plan.splits * plan.k_per_split >= K
+    assert plan.bt >= min(B, 128) and plan.bt in (8, 16, 32, 64, 128)
+    tiles = S * -(-N // TQ.TC_TILE_N) * -(-B // plan.bt)
+    assert plan.blocks == tiles * plan.splits <= 2 * 132
+    f32 = TQ.k1_plan(S, B, K, N, x_bf16=False, sms=132)
+    assert 1 <= f32.splits <= TQ.MAX_CLUSTER
+    assert (f32.splits - 1) * f32.k_per_split < max(K, 1)
+
+
+def test_lib_path_covers_headers(tmp_path):
+    """The built library's name hashes every source and header under
+    csrc/: an edited .cuh beside a kernel's .cu rebuilds it."""
+    from tacotron2_subword_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    name = _build.KERNELS[0]
+    before = _build._lib_path(name, csrc)
+    assert before == _build._lib_path(name, csrc)
+    (csrc / "common.cuh").write_text("#pragma once\n")
+    with_header = _build._lib_path(name, csrc)
+    assert with_header != before
+    (csrc / "common.cuh").write_text("#pragma once\n// edited\n")
+    assert _build._lib_path(name, csrc) not in (before, with_header)
+    assert _build._lib_path(name) == _build._lib_path(name, _build.CSRC_DIR)
+
+
+# ---- the redesigned kernels on the card ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,B,K,N", [(2, 128, 1792, 4096), (1, 128, 4096, 4096),
+                                     (2, 129, 1792, 4096), (3, 9, 300, 130),
+                                     (2, 3, 46, 80), (1, 5, 37, 83),
+                                     (1, 1, 64, 128)])
+def test_k1_bf16_tensor_cores_on_card(cuda_device, S, B, K, N):
+    """K1's tensor-core kernel (bf16 x) at B=128/129 and at ragged K, N and
+    B: within 2e-3 * max|ref| of the plain version (tensor-core sums round
+    in another order), one launch per call, and two runs bit-equal."""
+    x, w_q, scale = _inputs(S, B, K, N, torch.bfloat16, seed=3,
+                            device=cuda_device)
+    before = TQ.launches
+    y = TQ.matmul_dequant_int8(x, w_q, scale)
+    y_again = TQ.matmul_dequant_int8(x, w_q, scale)
+    ref = TQ.matmul_dequant_int8_plain(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert TQ.launches == before + 2
+    assert torch.equal(y, y_again)
+    assert (y - ref).abs().max() <= 2e-3 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shared", "global"])
+@pytest.mark.parametrize("shape,bw", [s for s in SDTW_SHAPES
+                                      if s[0][1] <= 128])
+def test_softdtw_grad_variants_on_card(cuda_device, variant, shape, bw):
+    """K2's shared-memory and global variants both equal the plain version
+    bit for bit (the same f32 operations in the same order, gamma = 1) and
+    themselves across two runs; E is 0 outside the band."""
+    B, N, M = shape
+    g = torch.Generator(device=cuda_device).manual_seed(N * M)
+    x = torch.randn((B, N, 8), generator=g, device=cuda_device)
+    y = torch.randn((B, M, 8), generator=g, device=cuda_device)
+    D = TS.euclidean_dist_matrix(x, y)
+    v, E = TS.softdtw_grad(D, 1.0, bw, variant=variant)
+    v_again, E_again = TS.softdtw_grad(D, 1.0, bw, variant=variant)
+    pv, pE = TS.softdtw_grad_plain(D, 1.0, bw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, v_again) and torch.equal(E, E_again)
+    assert torch.equal(v, pv) and torch.equal(E, pE)
     banned = ~TS.band_mask(N, M, bw, cuda_device)
     assert (E[:, banned] == 0).all()
