@@ -14,7 +14,10 @@ the port at full width:
    against the CPU, and the cost of the f32 LSTM gates on the
    non-quantized bf16 decode;
  - training: K2 (both variants: shared memory, and the global one forced)
-   and K3 against their plain versions (bit-equal across two runs), the
+   and K3 against their plain versions (bit-equal across two runs; K3
+   bit-equal to its plain version at every shape), K3's plan, registers and
+   spills, K3 against the plain version at the small shapes (device and
+   host wall time: the crossover for softdtw_impl="auto"), the
    soft-DTW train step (B=8, T_out=128, bench.py's batch) with K2's and
    K3's launches counted, a profile of one step, one f32 train step on the
    card against the CPU, and the training CLI up to validation.
@@ -269,16 +272,90 @@ def sdtw_bound_ms(B, N, M, bandwidth, grad: bool):
                                        else "operations")
 
 
-def phase_softdtw(SD, dev):
+def ptxas_entries(report: str, needle: str):
+    """Registers and spill bytes of each compiled entry function whose
+    (mangled) name holds ``needle``, from an ``nvcc -Xptxas -v`` report."""
+    import re
+    regs, spills, cur = {}, {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            spills[cur] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = int(m.group(1))
+    return [{"entry": k, "registers": regs[k],
+             "spill_stores": spills.get(k, (None, None))[0],
+             "spill_loads": spills.get(k, (None, None))[1]}
+            for k in sorted(regs) if needle in k]
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Host ms per call of ``fn``, launches included, over ``iters`` calls
+    ended by a synchronize: what an eager caller pays."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+# the small shapes of SDTW_CASES at which the plain version is timed
+# against K3 (does softdtw_impl="auto" rightly take the kernel at every
+# size on CUDA?)
+SDTW_SMALL = [(2, 9, 9), (3, 17, 15), (2, 24, 24)]
+
+
+def k3_cell_cycles(SD, dev, iters: int = 20000):
+    """Clock cycles of one dependent K3 cell (a shuffle, softmin3 and an
+    add: the chain's link) on one warp, and the SM clock in GHz that the
+    same launch ran at (its clock64 cycles over its CUDA-event time)."""
+    import ctypes
+    lib = SD._lib()
+    lib.t2s_softdtw_chain_cycles.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_void_p]
+    cyc = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = torch.zeros(32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    run = lambda: lib.t2s_softdtw_chain_cycles(cyc.data_ptr(), out.data_ptr(),
+                                               iters, stream)
+    run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    code = run()
+    end.record()
+    end.synchronize()
+    if code != 0:
+        raise AssertionError(f"chain_cycles launch failed: {code}")
+    cycles = cyc.item()
+    return cycles / iters, cycles / (start.elapsed_time(end) * 1e6)
+
+
+def phase_softdtw(SD, dev, k3_ptxas):
     """K2 (both variants: shared memory where it fits, and the global one
     forced at every shape) and K3 against their plain versions, each kernel
     run twice and required bit-equal (a missing barrier shows as run-to-run
     drift).  Tolerances: both sides do the same f32 operations in the same
     order, so only the exp/log of the two builds may differ: |d value| <=
     1e-5 * max(1, |value|), |d E| <= 1e-5; E is exactly 0 outside the band.
-    Times per call and per serial diagonal (2 (N+M-1) for K2, N+M-1 for
-    K3)."""
+    K3 must be bit-equal to its plain version at every shape.  Times per
+    call and per serial diagonal (2 (N+M-1) for K2, N+M-1 for K3), with
+    K3's plan and registers; at the small shapes K3 and the plain version
+    also by host wall time per call (the crossover for "auto")."""
     rows = []
+    cell_cycles, clock_ghz = k3_cell_cycles(SD, dev)
+    print("k3 cell", json.dumps({"cycles_per_cell": cell_cycles,
+                                 "sm_clock_ghz": clock_ghz}))
     for (B, N, M), bw in SDTW_CASES:
         gen = torch.Generator(device=dev).manual_seed(B * 1000 + N + M)
         dim = 80 if N >= 128 else 2   # mel frames at the slice's shapes
@@ -317,9 +394,18 @@ def phase_softdtw(SD, dev):
         if not torch.equal(v3, v3b):
             raise AssertionError(f"K3 not deterministic at {(B, N, M)}")
         row["k3_value"] = (v3 - pv3).abs().max().item()
-        if not ((v3 - pv3).abs() <= vtol).all():
-            raise AssertionError(f"K3 disagrees at {(B, N, M)} bw={bw}: "
-                                 f"{row['k3_value']}")
+        row["k3_plan"] = SD.k3_plan(B, N, M)._asdict()
+        if not torch.equal(v3, pv3):
+            raise AssertionError(f"K3 not bit-equal to its plain version at "
+                                 f"{(B, N, M)} bw={bw}: {row['k3_value']}")
+        if (B, N, M) in SDTW_SMALL:
+            row["k3_ms"] = device_ms(lambda: SD.softdtw_value(D, 1.0, bw), 20)
+            row["k3_plain_ms"] = device_ms(
+                lambda: SD.softdtw_value_plain(D, 1.0, bw), 2)
+            row["k3_wall_ms"] = wall_ms(lambda: SD.softdtw_value(D, 1.0, bw),
+                                        50)
+            row["k3_plain_wall_ms"] = wall_ms(
+                lambda: SD.softdtw_value_plain(D, 1.0, bw), 5)
         if N >= 128 and N == M and B == 8:
             P = N + M - 1
             for variant in ("shared", "global"):
@@ -341,6 +427,10 @@ def phase_softdtw(SD, dev):
             row["k3_bound_ms"], row["k3_bound_by"] = sdtw_bound_ms(
                 B, N, M, bw, False)
             row["k3_serial_diagonals"] = P
+            # the least a wavefront can take: one dependent cell per diagonal
+            row["k3_serial_floor_ms"] = P * cell_cycles / (clock_ghz * 1e6)
+            row["k3_cycles_per_diagonal"] = row["k3_ms"] * 1e6 * clock_ghz / P
+            row["k3_ptxas"] = k3_ptxas
         rows.append(row)
         print("softdtw", json.dumps(row))
     return rows
@@ -819,7 +909,8 @@ def main() -> int:
     # 5. the training path: K2 and K3 against their plain versions, the
     #    full-width soft-DTW train step with launches counted, the f32 step
     #    on the card against the CPU, the training CLI
-    sdtw_rows = phase_softdtw(SD, dev)
+    sdtw_rows = phase_softdtw(
+        SD, dev, ptxas_entries(reports["softdtw"], "softdtw_fwd_kernel"))
     cfg_train = TacotronConfig(softdtw_loss_weight=1.0)
     k2_launches, k3_launches = phase_train(TT, SD, cfg_train, dev, gpu)
     phase_train_parity(TT, TM, cfg_train, dev)
@@ -860,6 +951,8 @@ def main() -> int:
               for r in profile_rows]}
     main_row = next(r for r in sdtw_rows if (r["B"], r["N"], r["M"])
                     == (TRAIN_B, TRAIN_T_OUT, TRAIN_T_OUT))
+    row_256 = next(r for r in sdtw_rows if (r["B"], r["N"], r["M"])
+                   == (TRAIN_B, 256, 256))
     no_library = ("no single PyTorch call computes soft-DTW (a wavefront "
                   "recursion over the distance matrix)")
     sdtw = []
@@ -889,6 +982,18 @@ def main() -> int:
         if key == "k2":
             entry["variant"] = main_row["k2_variant"]
             entry["global_variant_ms"] = main_row["k2_global_ms"]
+        else:
+            entry["plan"] = main_row["k3_plan"]
+            entry["ptxas"] = main_row["k3_ptxas"]
+            entry["serial_floor_ms"] = main_row["k3_serial_floor_ms"]
+            entry["cycles_per_diagonal"] = main_row["k3_cycles_per_diagonal"]
+            entry["cli_bucket"] = {k: row_256[f"k3_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "us_per_diagonal", "plan",
+                "serial_floor_ms", "cycles_per_diagonal")}
+            entry["small"] = [{k: r[k] for k in (
+                "B", "N", "M", "k3_ms", "k3_plain_ms", "k3_wall_ms",
+                "k3_plain_wall_ms")} for r in sdtw_rows
+                if (r["B"], r["N"], r["M"]) in SDTW_SMALL]
         sdtw.append(entry)
     print(json.dumps({"kernels": [k1] + sdtw}))
     print(gpu)

@@ -33,17 +33,15 @@
 //   wavefront warps run the current chunk, so the serial chain that carries
 //   E is three products and two sums per diagonal.
 // K3 t2s_softdtw_fwd: the value only.  Replaces softdtw_pallas
-//   (tacotron2_subword_tpu/ops/softdtw.py:507).  Three rotating diagonals of
-//   R live in shared memory (3 * (N+1) floats); nothing but the value goes
-//   to device memory.
+//   (tacotron2_subword_tpu/ops/softdtw.py:507).  See below.
 //
 // gamma a power of two (the training default is 1): x / gamma and
 // x * (1 / gamma) are the same correctly rounded number, so the kernels
 // multiply (template POW2) and stay bit-equal to the plain version.
 //
-// Design: one block per batch row, as in the reference numba kernel; the
-// threads of the block take the rows of an anti-diagonal (looping when a
-// diagonal is longer than the block) and meet at one barrier per
+// K2's design: one block per batch row, as in the reference numba kernel;
+// the threads of the block take the rows of an anti-diagonal (looping when
+// a diagonal is longer than the block) and meet at one barrier per
 // diagonal.  K2's block has up to 384 threads more than a diagonal has
 // cells: the extra warps copy and compute the weights, and sit out the
 // wavefronts (named barrier 1 holds only the wavefront warps).  The TPU kernels' skewed layout, lane padding and batch blocks
@@ -53,8 +51,42 @@
 // 1 log) and 3 exp backward; reading D and writing E once is 8 bytes a cell.
 // At B=8, N=M=128 both come to well under a microsecond of the card's
 // throughput; what rules is the serial chain of N+M-1 diagonals (twice that
-// for K2), each a barrier plus a memory round trip (shared memory in the
-// shared variant, L1/L2 in the global one), on only B of the 132 SMs.
+// for K2) on only B of the 132 SMs: in K2 each link is a barrier plus a
+// memory round trip (shared memory in the shared variant, L1/L2 in the
+// global one).
+//
+// K3's design: the chain's links are made as short as a cell's arithmetic
+// allows, with no block barrier and no device-memory access on them.
+//  - Rows on lanes, columns on time: warp w takes rows [32k, 32k+32) of
+//    warp-row k = w, w + W, ... (W warps; a second "strip" of warp-rows
+//    where N > 32 W).  Lane l does column j = t - l at its step t: R(i, j-1)
+//    is its own register, R(i-1, j) comes from lane l-1 by __shfl_up_sync,
+//    R(i-1, j-1) is what came the step before.  A step is a shuffle and
+//    softmin3.
+//  - Warp to warp: lane 31 keeps its row (the next warp-row's top
+//    boundary) in registers for kChunk steps, then stores it into a row
+//    buffer [W][M] (shared memory where it fits, else a scratch the
+//    wrapper allocates), fences, and publishes the count of columns
+//    written; the consumer polls the count once per kChunk columns,
+//    fences, and takes the next kChunk boundary values into registers
+//    (lane e holds column t0 + e; lane 0 reads them by __shfl_sync).  Every
+//    wait is for a value that precedes the waiter in the recursion, and a
+//    row's buffer is rewritten only after its reader has computed those
+//    columns, so there is no deadlock and no overwrite.
+//  - D off the chain: each warp streams its 32 rows of D into a ring of
+//    kRing columns in shared memory by 4-byte cp.async (any M), kChunk
+//    columns at a time, two chunks ahead of the wavefront.  Cell (l, j)
+//    sits at l * kStride + j % kRing with kStride - 1 odd, so the 32 lanes
+//    of a step (one diagonal) hit 32 distinct banks.
+//  - No branch inside a step: every lane computes every step and selects.
+//    A divergent branch per cell cost more than the cell (reconvergence).
+//  - The same operations as the plain version in the same order
+//    (softmin3(up, left, diag), exp terms summed (e0 + e1) + e2), so the
+//    value is bit-equal to it at gamma = 1.
+//  What is left is the chain: N+M-1 dependent cells, ~200 cycles each on
+//  an H100 SXM (three expf and a logf in full precision, a shuffle, a few
+//  adds; chip_smoke.py measures it), a lag of kChunk + 32 steps per warp
+//  boundary, and the handoff and D staging once per chunk of kChunk steps.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -281,43 +313,161 @@ __global__ void softdtw_grad_kernel(const float* __restrict__ D,
     copy_rows(Eg, M, Eb, sd, N, M);
 }
 
+// K3's constants (ops/softdtw.py K3_CHUNK, K3_STRIDE): the steps
+// between two warp-to-warp handoffs and D chunks; the D ring's columns
+// (the 32 columns a warp spans plus three chunks in flight must fit); its
+// row stride (kRing + 2: even, so kStride - 1 is odd).
+constexpr int kChunk = 8;
+constexpr int kRing = 64;
+constexpr int kStride = kRing + 2;
+static_assert(31 + 3 * kChunk <= kRing, "D ring too small for its chunks");
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Bytes of K3's dynamic shared memory: the handoff counters [W] (padded to
+// 16 bytes), the D rings [W][32][kStride], and the boundary rows [W][M]
+// where they live in shared memory.
+__host__ __device__ __forceinline__ long long fwd_smem_bytes(int M, int warps,
+                                                             bool bnd_shared) {
+  return 4LL * (((warps + 3) / 4) * 4 + (long long)warps * 32 * kStride +
+                (bnd_shared ? (long long)warps * M : 0LL));
+}
+
+// One block per batch row, W = blockDim.x / 32 warps; bnd_ws is the
+// boundary rows [B][W][M] in device memory, or null for shared memory.
 template <bool POW2>
 __global__ void softdtw_fwd_kernel(const float* __restrict__ D,
+                                   float* bnd_ws,
                                    float* __restrict__ value, int N, int M,
                                    float gamma, float bandwidth) {
-  extern __shared__ float diag[];  // 3 rotating diagonals of N+1 slots
-  // slot s of a diagonal holds row s-1; slot 0 is the +INF row above the grid
+  extern __shared__ __align__(16) float k3_smem[];
+  constexpr unsigned kFull = 0xffffffffu;
+  const int W = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x;
-  const int P = N + M - 1;
-  const int S = N + 1;
-  const float* Db = D + (size_t)b * N * M;
   const float inv = 1.f / gamma;
-  for (int k = threadIdx.x; k < 3 * S; k += blockDim.x) diag[k] = kInf;
-  __syncthreads();
+  const float* Dg = D + (size_t)b * N * M;
+  // cnt[s]: columns published into boundary row s, counted over the rows
+  // that pass through it (a sequence number, never reset)
+  int* cnt = reinterpret_cast<int*>(k3_smem);
+  float* ring = k3_smem + ((W + 3) / 4) * 4 + w * 32 * kStride;
+  float* bnd = bnd_ws != nullptr ? bnd_ws + (size_t)b * W * M
+                                 : k3_smem + ((W + 3) / 4) * 4 + W * 32 * kStride;
+  if (threadIdx.x < W) cnt[threadIdx.x] = 0;
+  __syncthreads();  // once, before any warp polls a counter
 
-  for (int p = 0; p < P; ++p) {
-    float* cur = diag + (p % 3) * S;
-    const float* prev1 = diag + ((p + 2) % 3) * S;  // diagonal p-1
-    const float* prev2 = diag + ((p + 1) % 3) * S;  // diagonal p-2
-    // every row is written, the off-grid ones with +INF, so the next two
-    // diagonals read +INF there
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-      const int j = p - i;
-      float r = kInf;
-      if (j >= 0 && j < M) {
-        const float d = Db[(size_t)i * M + j];
-        if (!banned(i, j, bandwidth) && d < 0.5f * kInf) {
-          const float up = prev1[i];        // (i-1, j)
-          const float left = prev1[i + 1];  // (i, j-1)
-          const float dg = (p == 0 && i == 0) ? 0.f : prev2[i];  // (i-1, j-1)
-          r = d + softmin3<POW2>(up, left, dg, gamma, inv);
-        }
+  const int nk = (N + 31) / 32;   // warp-rows
+  const int nch = (M + 31 + kChunk - 1) / kChunk;  // chunks of steps a row
+  // warp w's g-th row reads boundary row w (g-th use) and writes boundary
+  // row (w+1) % W, which warp (w+1) % W reads in its g-th (w+1 < W) or
+  // (g+1)-th row
+  const float* top = bnd + (size_t)w * M;
+  float* bottom = bnd + (size_t)((w + 1) % W) * M;
+  volatile int* top_cnt = cnt + w;
+  int* bottom_cnt = cnt + (w + 1) % W;
+
+  for (int g = 0, k = w; k < nk; ++g, k += W) {
+    const int row0 = 32 * k, i = row0 + lane;
+    const bool live = i < N, has_top = k > 0, has_bottom = k + 1 < nk;
+    const int top_base = g * M, bottom_base = (w + 1 < W ? g : g + 1) * M;
+    // D columns [c kChunk, (c+1) kChunk) of the warp's rows into the ring
+    auto stage = [&](int c) {
+      const int c0 = c * kChunk;
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q) {
+        const int e = q * 32 + lane;
+        const int r = e / kChunk, col = c0 + e % kChunk;
+        if (row0 + r < N && col < M)
+          cp_async4(ring + r * kStride + (col & (kRing - 1)),
+                    Dg + (size_t)(row0 + r) * M + col);
       }
-      cur[i + 1] = r;
+      cp_async_commit();
+    };
+    stage(0);
+    stage(1);
+
+    // lane 31 stores its chunk of the boundary row after the chunk's
+    // steps, and the value is written once after the row
+    float r = kInf;                                  // R(i, j-1)
+    float up_prev = (k == 0 && lane == 0) ? 0.f : kInf;  // R(i-1, j-1)
+    float bval = kInf;  // lane e: boundary column t0 + e (+INF above row 0)
+    float last = kInf;  // R(i, M-1)
+    for (int c = 0; c < nch; ++c) {
+      const int t0 = c * kChunk;
+      cp_async_wait<1>();  // chunk c has landed
+      __syncwarp();        // ... for every lane; chunk c-2's slots are free
+      stage(c + 2);
+      if (has_top && t0 < M) {
+        const int need = top_base + min(M, t0 + kChunk);
+        while (*top_cnt < need) {
+        }
+        __threadfence_block();
+        bval = (lane < kChunk && t0 + lane < M) ? top[t0 + lane] : kInf;
+      }
+      float out[kChunk];  // this chunk's R(i, t0 + e - lane)
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        const int j = t0 + e - lane;
+        const float from_left_lane = __shfl_up_sync(kFull, r, 1);
+        const float from_top = __shfl_sync(kFull, bval, e);
+        const float up = lane == 0 ? from_top : from_left_lane;  // R(i-1, j)
+        const float dg = up_prev;
+        up_prev = up;
+        // off the grid the slot holds another column (or nothing): the
+        // result is computed and thrown away
+        const float d = ring[lane * kStride + (j & (kRing - 1))];
+        const float cell = d + softmin3<POW2>(up, r, dg, gamma, inv);
+        const bool on = live && j >= 0 && j < M && !banned(i, j, bandwidth) &&
+                        d < 0.5f * kInf;
+        r = on ? cell : kInf;
+        out[e] = r;
+        last = j == M - 1 ? r : last;
+      }
+      if (has_bottom && lane == 31) {
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) {
+          const int j = t0 + e - 31;
+          if (j >= 0 && j < M) bottom[j] = out[e];
+        }
+        __threadfence_block();  // columns < t0 + kChunk - 31 are written
+        *(volatile int*)bottom_cnt =
+            bottom_base + min(max(t0 + kChunk - 31, 0), M);
+      }
     }
-    __syncthreads();
+    if (i == N - 1) value[b] = last;
+    cp_async_wait<0>();
+    __syncwarp();  // the next row's chunks overwrite the ring
   }
-  if (threadIdx.x == 0) value[b] = diag[((P - 1) % 3) * S + N];
+}
+
+// The serial floor's unit: one warp runs `iters` dependent cells, each a
+// shuffle, softmin3 (gamma 1) and an add, as on K3's chain; cycles[0] gets
+// the clock64 cycles they took.  A measurement, on no path of the port.
+__global__ void chain_cycles_kernel(long long* cycles, float* out, int iters) {
+  const int lane = threadIdx.x & 31;
+  float r = lane * 1e-3f, dg = 0.5f * r;
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+    const float up = __shfl_up_sync(0xffffffffu, r, 1);
+    const float cell = 1e-3f + softmin3<true>(up, r, dg, 1.f, 1.f);
+    dg = up;
+    r = cell;
+  }
+  const long long t1 = clock64();
+  out[lane] = r;
+  if (lane == 0) cycles[0] = t1 - t0;
 }
 
 int block_threads(int rows) {
@@ -392,20 +542,41 @@ int t2s_softdtw_grad(const float* D, float* R_ws, float* E, float* value,
   return (int)err;
 }
 
-// K3.  D [B,N,M] -> value [B], f32, contiguous.  N is bounded by shared
-// memory: 3 * (N+1) floats must fit in a block's 227 KB (N <= 19369).
-int t2s_softdtw_fwd(const float* D, float* value, int B, int N, int M,
-                    float gamma, float bandwidth, void* stream) {
-  const size_t smem = 3 * (size_t)(N + 1) * sizeof(float);
+// Bytes of shared memory K3 needs with `warps` warps, the boundary rows in
+// shared memory (bnd_shared != 0) or in a scratch.
+long long t2s_softdtw_fwd_smem_bytes(int M, int warps, int bnd_shared) {
+  return fwd_smem_bytes(M, warps, bnd_shared != 0);
+}
+
+// K3.  D [B,N,M] -> value [B], f32, contiguous, with `warps` warps (1-32)
+// and handoffs every `chunk` (== kChunk) columns.  bnd_ws is null (the
+// boundary rows in shared memory) or a scratch of B * warps * M floats;
+// smem_bytes must equal t2s_softdtw_fwd_smem_bytes(M, warps, !bnd_ws).
+// Launches on `stream`, returns a CUDA error code.
+int t2s_softdtw_fwd(const float* D, float* bnd_ws, float* value, int B,
+                    int N, int M, float gamma, float bandwidth, int warps,
+                    int chunk, long long smem_bytes, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || warps < 1 || warps > 32 ||
+      chunk != kChunk ||
+      smem_bytes != fwd_smem_bytes(M, warps, bnd_ws == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto kernel = is_pow2(gamma) ? softdtw_fwd_kernel<true>
                                : softdtw_fwd_kernel<false>;
-  if (smem > 48 * 1024) {
+  if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<B, block_threads(N), smem, (cudaStream_t)stream>>>(
-      D, value, N, M, gamma, bandwidth);
+  kernel<<<B, 32 * warps, (size_t)smem_bytes, (cudaStream_t)stream>>>(
+      D, bnd_ws, value, N, M, gamma, bandwidth);
+  return (int)cudaGetLastError();
+}
+
+// Cycles of `iters` dependent K3 cells on one warp (chain_cycles_kernel);
+// cycles and out (32 floats) on the current device.
+int t2s_softdtw_chain_cycles(long long* cycles, float* out, int iters,
+                             void* stream) {
+  chain_cycles_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(cycles, out, iters);
   return (int)cudaGetLastError();
 }
 

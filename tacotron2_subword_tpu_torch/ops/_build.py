@@ -55,13 +55,16 @@ def _lib_path(name: str, csrc: Path = CSRC_DIR) -> Path:
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel that is not built yet, in parallel.
-    Returns each kernel's ptxas report (registers, shared memory, spills);
-    empty for a kernel that was already built.  Raises if nvcc fails."""
+    Returns each kernel's ptxas report (registers, shared memory, spills),
+    kept beside the library as ``.log`` for a kernel that was already
+    built.  Raises if nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, reports = {}, {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            reports[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -69,13 +72,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    reports, failed = {name: "" for name in names}, []
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         reports[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

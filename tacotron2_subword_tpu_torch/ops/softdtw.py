@@ -16,7 +16,9 @@ INF is the finite sentinel 1e30, so only f32 is taken.
    shared memory where they fit in a block's 227 KB (128 x 128), else R in
    a device-memory workspace (allocated only then);
  - ``softdtw_value(D, gamma, bw) -> value`` launches K3
-   (``t2s_softdtw_fwd``, forward only) for a CUDA tensor;
+   (``t2s_softdtw_fwd``, forward only: a warp-pipelined wavefront that
+   passes R between lanes by shuffles) for a CUDA tensor; ``k3_plan`` picks
+   its warps and where the rows handed from warp to warp live;
  - ``softdtw_diff`` is differentiable: where D needs a gradient its forward
    runs K2 and keeps E for the backward, otherwise it runs K3;
  - ``softdtw`` is the plain implementation as a differentiable op (the JAX
@@ -257,20 +259,82 @@ def softdtw_grad(D: torch.Tensor, gamma: float = 1.0, bandwidth: float = 0.0,
     return value, E
 
 
+class K3Plan(NamedTuple):
+    """K3's launch for one shape: ``warps`` warps of one row per lane,
+    taking the ``ceil(N / 32)`` warp-rows in ``strips`` turns; the warp-to-
+    warp handoff and the D stream every ``chunk`` columns; ``smem_bytes`` of
+    dynamic shared memory; ``scratch_floats`` of device memory for the
+    rows handed between warps (0: they live in shared memory)."""
+    warps: int
+    strips: int
+    chunk: int
+    smem_bytes: int
+    scratch_floats: int
+
+
+# K3's constants, as in csrc/softdtw.cu: the handoff / D chunk (kChunk), the
+# D ring's row stride (kStride = kRing + 2), and the most warps a block
+# gets (a warp-row more than that waits for a second strip).
+K3_CHUNK = 8
+K3_STRIDE = 66
+K3_MAX_WARPS = 16
+
+
+def _k3_smem_bytes(M: int, warps: int, bnd_shared: bool) -> int:
+    """As ``fwd_smem_bytes`` in csrc/softdtw.cu: the handoff counters
+    [warps] padded to 16 bytes, the D rings [warps, 32, K3_STRIDE] and,
+    where they live on chip, the boundary rows [warps, M]; all 4 bytes."""
+    return 4 * (-(-warps // 4) * 4 + warps * 32 * K3_STRIDE
+                + (warps * M if bnd_shared else 0))
+
+
+def k3_plan(B: int, N: int, M: int, warps: Optional[int] = None) -> K3Plan:
+    """One warp per 32 rows, up to ``K3_MAX_WARPS`` (``warps`` forces a
+    count, 1-32); the boundary rows [warps, M] in shared memory where the
+    whole fits in ``SMEM_LIMIT``, else a scratch of B * warps * M floats.
+    Raises on an empty shape, on N * M >= 2**31 (the kernel's int column
+    counts) and on warps whose D rings alone do not fit."""
+    if min(B, N, M) < 1:
+        raise ValueError(f"K3 takes B, N, M >= 1, got {(B, N, M)}")
+    if N * M >= 2 ** 31:
+        raise ValueError(f"K3 takes N * M < 2**31, got {N} x {M}")
+    rows = -(-N // 32)
+    if warps is None:
+        warps = min(rows, K3_MAX_WARPS)
+    elif not 1 <= warps <= 32:
+        raise ValueError(f"K3 takes 1-32 warps, got {warps}")
+    if _k3_smem_bytes(M, warps, False) > SMEM_LIMIT:
+        raise ValueError(f"K3's D rings for {warps} warps need "
+                         f"{_k3_smem_bytes(M, warps, False)} B of shared "
+                         f"memory; a block has {SMEM_LIMIT}")
+    strips = -(-rows // warps)
+    on_chip = _k3_smem_bytes(M, warps, True)
+    if on_chip <= SMEM_LIMIT:
+        return K3Plan(warps, strips, K3_CHUNK, on_chip, 0)
+    return K3Plan(warps, strips, K3_CHUNK, _k3_smem_bytes(M, warps, False),
+                  B * warps * M)
+
+
 def softdtw_value(D: torch.Tensor, gamma: float = 1.0,
-                  bandwidth: float = 0.0) -> torch.Tensor:
-    """value [B] for D [B,N,M] f32: K3 on a CUDA tensor, its plain version
+                  bandwidth: float = 0.0,
+                  warps: Optional[int] = None) -> torch.Tensor:
+    """value [B] for D [B,N,M] f32: K3 on a CUDA tensor (the launch
+    ``k3_plan`` picks; ``warps`` forces its warp count), its plain version
     on a CPU tensor."""
     global fwd_launches
     if not _on_cuda(D):
         return softdtw_value_plain(D, gamma, bandwidth)
     B, N, M = D.shape
+    plan = k3_plan(B, N, M, warps)
     value = torch.empty((B,), dtype=torch.float32, device=D.device)
+    scratch = (torch.empty((plan.scratch_floats,), dtype=torch.float32,
+                           device=D.device) if plan.scratch_floats else None)
     lib = _lib()
     with torch.cuda.device(D.device):
         code = lib.t2s_softdtw_fwd(
-            D.data_ptr(), value.data_ptr(), B, N, M, float(gamma),
-            float(bandwidth or 0.0),
+            D.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            value.data_ptr(), B, N, M, float(gamma), float(bandwidth or 0.0),
+            plan.warps, plan.chunk, plan.smem_bytes,
             torch.cuda.current_stream(D.device).cuda_stream)
     _build.check(lib, code, "softdtw_fwd")
     fwd_launches += 1
@@ -356,7 +420,10 @@ def _lib() -> ctypes.CDLL:
                ctypes.c_void_p])
         lib.t2s_softdtw_grad.restype = ctypes.c_int
         lib.t2s_softdtw_fwd.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [f, f,
-                                                          ctypes.c_void_p])
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+            + [f, f, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_void_p])
+        lib.t2s_softdtw_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.t2s_softdtw_fwd_smem_bytes.restype = ctypes.c_longlong
         lib.t2s_softdtw_fwd.restype = ctypes.c_int
     return lib

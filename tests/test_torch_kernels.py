@@ -145,6 +145,50 @@ def test_k2_fit_guard_and_workspace(N, M, variant):
     assert forced.workspace_floats == B * (N + 2) * (M + 2)
 
 
+K3_PLAN_SHAPES = [s for s, _ in SDTW_SHAPES] + [
+    (1, 1, 1), (2, 1, 7), (2, 7, 1), (5, 33, 47), (1, 19369, 128),
+    (1, 19369, 19369)]
+
+
+@pytest.mark.parametrize("B,N,M", K3_PLAN_SHAPES)
+def test_k3_plan_covers_rows_and_fits(B, N, M):
+    """K3's plan: warp w takes warp-rows w, w + warps, ... (32 rows each) in
+    ``strips`` turns, which covers every row exactly once; its shared memory
+    (counters, D rings [warps, 32, 66], the boundary rows [warps, M] where
+    they fit) stays within a block's 227 KB, and it asks for a scratch only
+    where the boundary rows do not fit on chip."""
+    plan = TS.k3_plan(B, N, M)
+    assert 1 <= plan.warps <= TS.K3_MAX_WARPS and plan.chunk == TS.K3_CHUNK
+    seen = np.zeros(N, dtype=np.int64)
+    for w in range(plan.warps):
+        for g in range(plan.strips):
+            k = w + g * plan.warps
+            seen[32 * k:32 * k + 32] += 1
+    assert (seen == 1).all()
+    assert (plan.strips - 1) * plan.warps * 32 < N
+    assert 0 < plan.smem_bytes <= TS.SMEM_LIMIT
+    rings = 4 * (-(-plan.warps // 4) * 4 + plan.warps * 32 * TS.K3_STRIDE)
+    on_chip = rings + 4 * plan.warps * M
+    if on_chip <= TS.SMEM_LIMIT:
+        assert plan.scratch_floats == 0 and plan.smem_bytes == on_chip
+    else:
+        assert plan.scratch_floats == B * plan.warps * M
+        assert plan.smem_bytes == rings
+    if (B, N, M) in [s for s, _ in SDTW_SHAPES]:  # the card's shapes
+        assert plan.scratch_floats == 0
+
+
+@pytest.mark.parametrize("B,N,M,warps", [(1, 0, 5, None), (1, 5, 0, None),
+                                         (0, 5, 5, None), (1, 64, 64, 0),
+                                         (1, 64, 64, 33),
+                                         (1, 2 ** 16, 2 ** 15, None)])
+def test_k3_plan_rejects(B, N, M, warps):
+    """Empty shapes, warp counts outside 1-32 and N * M >= 2**31 (the
+    kernel counts columns in int) raise."""
+    with pytest.raises(ValueError):
+        TS.k3_plan(B, N, M, warps)
+
+
 @pytest.mark.parametrize("S,B,K,N,splits", [(2, 4, 1792, 4096, 2),
                                             (1, 4, 4096, 4096, 7),
                                             (2, 128, 1792, 4096, 2),
@@ -231,3 +275,44 @@ def test_softdtw_grad_variants_on_card(cuda_device, variant, shape, bw):
     assert torch.equal(v, pv) and torch.equal(E, pE)
     banned = ~TS.band_mask(N, M, bw, cuda_device)
     assert (E[:, banned] == 0).all()
+
+
+K3_CARD_SHAPES = [((3, 17, 15), 0.0, None), ((2, 20, 30), 12.0, None),
+                  ((2, 24, 24), 5.0, None), ((2, 9, 9), 2.0, None),
+                  ((5, 33, 47), 0.0, None), ((1, 1, 1), 0.0, None),
+                  ((2, 1, 7), 0.0, None), ((2, 7, 1), 0.0, None),
+                  ((8, 128, 128), 0.0, None), ((8, 256, 256), 0.0, None),
+                  ((1, 1100, 900), 0.0, None), ((2, 100, 70), 0.0, 1),
+                  ((2, 100, 70), 20.0, 2), ((1, 130, 5), 0.0, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [1.0, 0.7])
+@pytest.mark.parametrize("shape,bw,warps", K3_CARD_SHAPES)
+def test_k3_bit_equal_on_card(cuda_device, shape, bw, warps, gamma):
+    """K3 (the register wavefront) against its plain version: bit-equal at
+    gamma = 1 (the same f32 operations in the same order), within 1e-5 *
+    max(1, |value|) at gamma = 0.7 (the kernel divides, the plain version
+    too, but libm and the card's expf/logf may differ in the last bit);
+    two runs bit-equal; one launch per call.  Forced warp counts run
+    several strips at small N (the hand-off back to warp 0)."""
+    B, N, M = shape
+    g = torch.Generator(device=cuda_device).manual_seed(7 * N + M)
+    x = torch.randn((B, N, 8), generator=g, device=cuda_device)
+    y = torch.randn((B, M, 8), generator=g, device=cuda_device)
+    D = TS.euclidean_dist_matrix(x, y)
+    before = TS.fwd_launches
+    v = TS.softdtw_value(D, gamma, bw, warps=warps)
+    v_again = TS.softdtw_value(D, gamma, bw, warps=warps)
+    pv = TS.softdtw_value_plain(D, gamma, bw)
+    torch.cuda.synchronize()
+    assert TS.fwd_launches == before + 2
+    assert torch.equal(v, v_again)
+    if gamma == 1.0:
+        assert torch.equal(v, pv)
+    else:
+        assert ((v - pv).abs() <= 1e-5 * pv.abs().clamp_min(1.0)).all()
+    plan = TS.k3_plan(B, N, M, warps)
+    lib = TS._lib()
+    assert lib.t2s_softdtw_fwd_smem_bytes(
+        M, plan.warps, int(plan.scratch_floats == 0)) == plan.smem_bytes
