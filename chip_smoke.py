@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  It builds every kernel of
-the port from ``tacotron2_subword_tpu_torch/csrc`` and drives both paths of
+the port from ``tacotron2_subword_tpu_torch/csrc`` and drives every path of
 the port at full width:
 
  - serving: K1 against its plain version (two runs bit-equal, its PTX
@@ -20,7 +20,12 @@ the port at full width:
    host wall time: the crossover for softdtw_impl="auto"), the
    soft-DTW train step (B=8, T_out=128, bench.py's batch) with K2's and
    K3's launches counted, a profile of one step, one f32 train step on the
-   card against the CPU, and the training CLI up to validation.
+   card against the CPU, and the training CLI up to validation;
+ - the text -> wav CLI (``apps/inference.run_inference``): 4 script lines
+   through the G2P front end, the int8 decode (200 steps each, K1's
+   launches counted), HiFi-GAN v1 and bias removal, with each line's time
+   split by stage; one line through Griffin-Lim with its spectral
+   convergence; one f32 line on the card against the CPU.
 
 ``python3 chip_smoke.py --k1-splits`` builds the kernels and times K1 at
 every number of K splits instead (the table behind ``ops/quant.k1_plan``).
@@ -796,6 +801,257 @@ def phase_train_cli(SD):
                                    "k3_launches": SD.fwd_launches}))
 
 
+CLI_LEXICON = ("an a_1 n\nanh a_1 J\nba b a_1\nbanh b a_1 J\n"
+               "em E_1 m\nme m E_1\nnam n a_1 m\n")
+CLI_SCRIPT = ("u0|ba me em nam\nu1|Anh banh an me ba, em nam!\n"
+              "u2|em nam ba me\nu3|nam anh em ba banh me an nhanh\n")
+CLI_STEPS = 200
+CLI_PARITY_STEPS = 20
+
+
+def reference_hifigan_state_dict(params):
+    """The port's HiFi-GAN tree as the reference's generator state dict:
+    the tree's path is the module name; v / g / w / b are weight_v /
+    weight_g / weight / bias."""
+    names = {"v": "weight_v", "g": "weight_g", "w": "weight", "b": "bias"}
+    sd = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, prefix + names[k] if k in names else f"{prefix}{k}.")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}{i}.")
+        else:
+            sd[prefix] = tree.detach().cpu().contiguous()
+    walk(params, "")
+    return sd
+
+
+def cli_assets(root):
+    """The CLI's inputs under ``root``: the small lexicon under the three
+    reference names with a phone_id_list.txt, a full-width acoustic model
+    with random weights (seed 0) saved by the port's save_checkpoint, a
+    HiFi-GAN v1 generator with random weight-normed weights (seed 1, g = 1
+    so each row keeps the signal's scale, 0.1 on conv_post so that tanh
+    and the int16 clip are not saturated) as a reference-format
+    {'generator': state_dict} file with its JSON config, and the 4-line
+    script."""
+    import os
+    from tacotron2_subword_tpu_torch import train_lib as TT
+    from tacotron2_subword_tpu_torch.config import TacotronConfig
+    from tacotron2_subword_tpu_torch.models import hifigan as HG
+    from tacotron2_subword_tpu_torch.text import lexicon as TL
+    from tacotron2_subword_tpu_torch.utils import checkpoint as CK
+    res = os.path.join(root, "res")
+    os.makedirs(res, exist_ok=True)
+    for name in ("small.lex",
+                 "all-vietnamese-syllables_17k9.XSAMPA.Mien-BAC_KA.txt",
+                 "03_all_foreign_words.10600woreds.30102020.lex",
+                 "cmudict-0.7b.vi.mergeEng-xsampa.forE2E.KA.txt"):
+        with open(os.path.join(res, name), "w", encoding="utf-8") as f:
+            f.write(CLI_LEXICON)
+    p2i, _ = TL.build_phone_id_map(
+        [TL.load_lexicon(os.path.join(res, "small.lex"))],
+        ["_", "-", "~", "+", " ", "!", ",", ".", "?"])
+    with open(os.path.join(res, "phone_id_list.txt"), "w",
+              encoding="utf-8") as f:
+        f.writelines(f"{p}\t{i}\n" for p, i in p2i.items())
+    gen = torch.Generator().manual_seed(0)
+    state, _ = TT.create_train_state(gen, TacotronConfig(), device="cpu")
+    ckpt = CK.save_checkpoint(state._replace(step=1), os.path.join(root, "ck"))
+    h = HG.HifiganConfig()
+    g = HG.init_generator(torch.Generator().manual_seed(1), h, device="cpu")
+    unit = lambda t: (
+        {k: torch.ones_like(v) if k == "g" else unit(v) for k, v in t.items()}
+        if isinstance(t, dict) else [unit(v) for v in t]
+        if isinstance(t, list) else t)
+    g = unit(g)
+    g["conv_post"]["g"] = g["conv_post"]["g"] * 0.1  # tanh off saturation
+    gpath = os.path.join(root, "g_00000001")
+    torch.save({"generator": reference_hifigan_state_dict(g)}, gpath)
+    cpath = os.path.join(root, "config_v1.json")
+    with open(cpath, "w") as f:
+        json.dump({"resblock": h.resblock,
+                   "upsample_rates": list(h.upsample_rates),
+                   "upsample_kernel_sizes": list(h.upsample_kernel_sizes),
+                   "upsample_initial_channel": h.upsample_initial_channel,
+                   "resblock_kernel_sizes": list(h.resblock_kernel_sizes),
+                   "resblock_dilation_sizes": [
+                       list(d) for d in h.resblock_dilation_sizes],
+                   "num_mels": h.num_mels,
+                   "sampling_rate": h.sampling_rate}, f)
+    script = os.path.join(root, "script.txt")
+    with open(script, "w", encoding="utf-8") as f:
+        f.write(CLI_SCRIPT)
+    return {"res": res, "lexicon": os.path.join(res, "small.lex"),
+            "ckpt_dir": os.path.dirname(ckpt), "hifigan": gpath,
+            "config": cpath, "script": script}
+
+
+def cli_argv(a, out_dir, hparams, steps, device, hifigan=True):
+    argv = ["--script", a["script"], "--checkpoint-dir", a["ckpt_dir"],
+            "--out-dir", out_dir, "--g2p-lexicon", a["lexicon"],
+            "--max-decoder-steps", str(steps), "--hparams", hparams,
+            "--device", device, "--overwrite"]
+    if hifigan:
+        argv += ["--hifigan-checkpoint", a["hifigan"],
+                 "--hifigan-config", a["config"]]
+    return argv
+
+
+def phase_cli(Q, dev, gpu):
+    """The text -> wav CLI (``apps/inference.run_inference``) in-process
+    at full width: 4 script lines, int8 decode of 200 steps each (the gate
+    never fires), HiFi-GAN v1 and bias removal.  Checks the wavs (22050 Hz
+    int16, 200 x 256 samples), that bias removal ran on every line, and
+    K1's launches (2 per decoder step); prints each line's wall time split
+    into front end, acoustic model, HiFi-GAN, denoiser and wav write, the
+    first line apart.  Then one line through Griffin-Lim (wall time,
+    spectral convergence falling from iteration 1 to 30) and one f32 line
+    of 20 steps on the card against the CPU, through the same per-line
+    function: mel within 1e-5 and the pre-int16 wav within 1e-4 of their
+    scale."""
+    import importlib.util
+    import os
+    import shutil
+    from pathlib import Path
+    from scipy.io.wavfile import read
+    from tacotron2_subword_tpu_torch.apps import inference as TI
+    from tacotron2_subword_tpu_torch.config import TacotronConfig
+    from tacotron2_subword_tpu_torch.models import tacotron2 as TM
+    from tacotron2_subword_tpu_torch.ops import stft as S
+    from tacotron2_subword_tpu_torch.text.fst_g2p import FstG2PModel
+    from tacotron2_subword_tpu_torch.utils.tree import cast_floats
+
+    root = Path(__file__).resolve().parent / "_runs" / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    a = cli_assets(str(root))
+    os.environ["T2S_RESOURCES_DIR"] = a["res"]
+    print(f"cli: assets in {time.perf_counter() - t0:.2f} s; G2P engine: "
+          f"{'native' if FstG2PModel.native_available() else 'python'}")
+    if importlib.util.find_spec("matplotlib") is None:
+        TI.save_plots = lambda *args: None
+        print("cli: matplotlib is not installed; the plot step is a no-op")
+
+    results = []
+    synth = TI.synthesize_text
+
+    def spy(syn, text):
+        results.append(synth(syn, text))
+        return results[-1]
+    TI.synthesize_text = spy
+    args = TI.build_argparser().parse_args(cli_argv(
+        a, str(root / "out"), "[decode_quant:int8-gate_threshold:1.1]",
+        CLI_STEPS, str(dev)))
+    try:
+        Q.launches = 0
+        t0 = time.perf_counter()
+        n_done = TI.run_inference(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = Q.launches
+    finally:
+        TI.synthesize_text = synth
+    steps = sum(r["steps_run"] for r in results)
+    if n_done != 4 or len(results) != 4:
+        raise AssertionError(f"cli rendered {n_done} lines, want 4")
+    if launches != 2 * steps or steps != 4 * CLI_STEPS:
+        raise AssertionError(f"cli: K1 launched {launches} times in {steps} "
+                             f"decoder steps; want 2 per step, 4 x "
+                             f"{CLI_STEPS} steps")
+    for i, r in enumerate(results):
+        sr, wav = read(str(root / "out" / "audio" / f"u{i}.wav"))
+        if sr != 22050 or wav.dtype != np.int16 \
+                or wav.shape != (CLI_STEPS * 256,):
+            raise AssertionError(f"cli: u{i}.wav is {sr} Hz {wav.dtype} "
+                                 f"{wav.shape}")
+        if "denoiser" not in r["times"]:
+            raise AssertionError(f"cli: no bias removal on u{i}")
+        if not np.isfinite(r["wav"]).all() or np.abs(r["wav"]).max() < 1:
+            raise AssertionError(f"cli: u{i} is silent or not finite")
+    keys = ("front_end", "acoustic", "vocoder", "denoiser", "wav_write")
+    audio_s = CLI_STEPS * 256 / 22050
+
+    def split(rs):
+        row = {k: float(np.mean([r["times"][k] for r in rs])) * 1e3
+               for k in keys}
+        row["line_ms"] = sum(row[k] for k in keys)
+        row["audio_s_per_s"] = audio_s / row["line_ms"] * 1e3
+        return row
+    # what decoder_infer's quantisation of the LSTM weights costs per line
+    params, _ = TI.load_acoustic_model(
+        os.path.join(a["ckpt_dir"], "checkpoint_1"), TacotronConfig(), dev)
+    dp = cast_floats(params["decoder"], torch.bfloat16)
+    del params
+    q_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        tq = time.perf_counter()
+        TM._stack_stream_params(dp, "int8")
+        torch.cuda.synchronize()
+        q_ms.append((time.perf_counter() - tq) * 1e3)
+    report = {"lines": 4, "steps_per_line": CLI_STEPS, "k1_launches": launches,
+              "wall_s": wall, "first_line": split(results[:1]),
+              "later_lines": split(results[1:]),
+              "quantize_ms": q_ms,
+              "wav_peak": float(max(np.abs(r["wav"]).max() for r in results)),
+              "wav_clipped_share": float(np.mean(np.concatenate([
+                  np.abs(r["wav"]) >= 32767 for r in results]))),
+              "gpu": gpu}
+    print("cli", json.dumps(report))
+
+    # Griffin-Lim: the same CLI without a vocoder checkpoint, one line
+    gl_args = TI.build_argparser().parse_args(cli_argv(
+        a, str(root / "out_gl"), "[decode_quant:int8-gate_threshold:1.1]",
+        CLI_STEPS, str(dev), hifigan=False))
+    syn = TI.load_synthesizer(gl_args)
+    synth(syn, "ba me em")     # warm-up: the STFT constants on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = synth(syn, "nam anh em ba banh me an")
+    gl_wall = time.perf_counter() - t0
+    spec = S.mel_to_linear(torch.from_numpy(r["mel"])[None].to(dev)) * 1000.0
+    angles = (torch.rand(spec.shape, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev) * 2 - 1) * np.pi
+    conv = {}
+    for k in (1, 2, 5, 10, 20, 30):
+        x = S.griffin_lim(spec, 1024, 256, 1024, n_iters=k, angles=angles)
+        est = S.stft_magnitude(x, 1024, 256, 1024)
+        conv[k] = ((spec - est).norm() / spec.norm()).item()
+    if not conv[30] < conv[1]:
+        raise AssertionError(f"Griffin-Lim: spectral convergence {conv}")
+    x1 = S.inverse_stft(spec, angles, 1024, 256, 1024)
+    if not torch.equal(x1, S.inverse_stft(spec, angles, 1024, 256, 1024)):
+        raise AssertionError("inverse_stft differs between two runs")
+    gl = {"frames": r["n_frames"], "wall_ms": gl_wall * 1e3,
+          "vocoder_ms": r["times"]["vocoder"] * 1e3,
+          "acoustic_ms": r["times"]["acoustic"] * 1e3,
+          "spectral_convergence": conv, "gpu": gpu}
+    print("cli griffin-lim", json.dumps(gl))
+    del syn
+
+    # one f32 line, card against CPU, through the same per-line function
+    outs = {}
+    for device in (str(dev), "cpu"):
+        p_args = TI.build_argparser().parse_args(cli_argv(
+            a, str(root / "out_f32"),
+            "[parity_mode:true-prenet_dropout_always_on:false-"
+            "gate_threshold:1.1]", CLI_PARITY_STEPS, device))
+        outs[device] = synth(TI.load_synthesizer(p_args), "ba me em nam")
+    c, h = outs[str(dev)], outs["cpu"]
+    errs = {k: float(np.abs(c[k] - h[k]).max() / np.abs(h[k]).max())
+            for k in ("mel", "wav")}
+    if c["n_frames"] != h["n_frames"] or c["wav"].shape != h["wav"].shape \
+            or errs["mel"] > 1e-5 or errs["wav"] > 1e-4:
+        raise AssertionError(f"cli f32 line, card vs CPU: {errs}, frames "
+                             f"{c['n_frames']} / {h['n_frames']}")
+    print("cli f32 line (card vs CPU, 20 steps):", json.dumps(errs))
+    return launches
+
+
 def phase_gate_cost(TM, TI, L, params, bn, cfg, dev, gpu):
     """What the f32 LSTM gates cost on the serving path's non-quantized
     bf16 decode: the prepared LSTM weights in f32 (gates f32, as in JAX)
@@ -916,7 +1172,11 @@ def main() -> int:
     phase_train_parity(TT, TM, cfg_train, dev)
     phase_train_cli(SD)
 
-    # 6. the kernels line: K1 per decoder step of the served batch (B=4,
+    # 6. the text -> wav CLI at full width: K1 counted on its path,
+    #    Griffin-Lim, one f32 line on the card against the CPU
+    cli_launches = phase_cli(Q, dev, gpu)
+
+    # 7. the kernels line: K1 per decoder step of the served batch (B=4,
     #    bf16 x): the attention-LSTM call plus the decoder-LSTM call, and the
     #    same at B=128; K2 and K3 at the train step's shape, 8 x 128 x 128
     def k1_step(B):
@@ -935,7 +1195,7 @@ def main() -> int:
     k1 = {"name": "dequant_int8_matmul", "route": "cuda",
           "source": "tacotron2_subword_tpu_torch/csrc/dequant_int8_matmul.cu",
           "replaces": "tacotron2_subword_tpu/ops/quant.py:74",
-          "launches": launches,
+          "launches": launches, "cli_launches": cli_launches,
           "max_abs_err": max(r["max_abs_err"] for r in k1_rows
                              if r["x"] == "bf16"),
           **{k: step4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -944,7 +1204,8 @@ def main() -> int:
           "b128": step128,
           "per": ("decoder step, bf16 x: (S=2,K=1792,N=4096) + "
                   "(S=1,K=4096,N=4096); top level at B=4, b128 at B=128; "
-                  "ms warm L2, cold_ms after a 256 MB flush"),
+                  "ms warm L2, cold_ms after a 256 MB flush; launches: the "
+                  "4 served requests, cli_launches: the CLI's 4 lines"),
           "decode_loop": [{k: r[k] for k in (
               "B", "k1_us_per_step", "k1_launches_per_step",
               "device_us_per_step", "kernel_launches_per_step")}

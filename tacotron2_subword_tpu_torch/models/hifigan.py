@@ -5,15 +5,19 @@ Counterpart of the generator half of
 upsampling stage leaky_relu -> ConvTranspose1d -> the average of the
 multi-receptive-field resblocks, then leaky_relu -> conv_post -> tanh.
 Parameters carry weight-norm {v, g, b} as trained; ``fuse_generator``
-collapses them for serving.  The convolutions are torch's F.conv1d /
+collapses them for serving.  ``HifiganConfig.from_json`` reads the
+reference's config JSON and ``import_torch_generator`` its
+``{'generator': state_dict}`` checkpoints.  The convolutions are torch's F.conv1d /
 F.conv_transpose1d, as the JAX package leaves them to XLA's convolutions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +40,23 @@ class HifiganConfig:
         (1, 3, 5), (1, 3, 5), (1, 3, 5))
     num_mels: int = 80
     sampling_rate: int = 22050
+
+    @classmethod
+    def from_json(cls, path: str) -> "HifiganConfig":
+        """The reference's config JSON (hifigan_infer/config_v1.json)."""
+        with open(path) as f:
+            h = json.load(f)
+        return cls(
+            resblock=str(h["resblock"]),
+            upsample_rates=tuple(h["upsample_rates"]),
+            upsample_kernel_sizes=tuple(h["upsample_kernel_sizes"]),
+            upsample_initial_channel=h["upsample_initial_channel"],
+            resblock_kernel_sizes=tuple(h["resblock_kernel_sizes"]),
+            resblock_dilation_sizes=tuple(
+                tuple(d) for d in h["resblock_dilation_sizes"]),
+            num_mels=h.get("num_mels", 80),
+            sampling_rate=h.get("sampling_rate", 22050),
+        )
 
     @property
     def total_upsample(self) -> int:
@@ -148,3 +169,34 @@ def fuse_generator(params):
             "ups": [_fused(p) for p in params["ups"]],
             "resblocks": [{k: [_fused(c) for c in v] for k, v in rb.items()}
                           for rb in params["resblocks"]]}
+
+
+def import_torch_generator(sd, h: HifiganConfig, device="cuda"):
+    """Params from a reference HiFi-GAN state dict (the ``generator`` entry
+    of a ``g_*`` checkpoint, reference hifigan_utils.py:38-41 /
+    inference.py:184-188; tensors or numpy arrays), weight-normed
+    (weight_v / weight_g) or fused (weight), on ``device``.  A missing key
+    raises KeyError."""
+    device = resolve_device(device)
+
+    def t(key):
+        return torch.as_tensor(np.asarray(sd[key]), dtype=torch.float32,
+                               device=device)
+
+    def grab(prefix):
+        if f"{prefix}.weight_v" in sd:
+            return {"v": t(f"{prefix}.weight_v"), "g": t(f"{prefix}.weight_g"),
+                    "b": t(f"{prefix}.bias")}
+        return {"w": t(f"{prefix}.weight"), "b": t(f"{prefix}.bias")}
+
+    params = {"conv_pre": grab("conv_pre"), "conv_post": grab("conv_post"),
+              "ups": [grab(f"ups.{i}") for i in range(len(h.upsample_rates))],
+              "resblocks": []}
+    nk = len(h.resblock_kernel_sizes)
+    names = ("convs1", "convs2") if h.resblock == "1" else ("convs",)
+    for i in range(len(h.upsample_rates) * nk):
+        nd = len(h.resblock_dilation_sizes[i % nk])
+        params["resblocks"].append(
+            {name: [grab(f"resblocks.{i}.{name}.{j}") for j in range(nd)]
+             for name in names})
+    return params

@@ -24,8 +24,31 @@ def test_port_has_the_slice_modules():
     for name in ("config", "ops.quant", "nn.layers", "models.attention",
                  "models.tacotron2", "models.hifigan", "utils.import_jax",
                  "apps.inference", "ops.softdtw", "train_lib",
-                 "data.dataset", "apps.train"):
+                 "data.dataset", "apps.train",
+                 "text", "text.lexicon", "text.fst_g2p", "text.g2p",
+                 "text.text_to_sequence", "text.bert", "ops.stft",
+                 "models.denoiser", "utils.import_torch", "utils.checkpoint",
+                 "utils.logging_utils"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
+    # the G2P engine is built from the port's own copy of the C++ source
+    assert (ROOT / "tacotron2_subword_tpu_torch" / "native"
+            / "g2p_fst.cpp").is_file()
+
+
+@pytest.mark.parametrize("module,lazy", [("text.g2p", "yaml"),
+                                         ("utils.logging_utils", "matplotlib"),
+                                         ("text.bert", "tokenizers"),
+                                         ("text.bert", "transformers")])
+def test_optional_packages_load_only_when_used(module, lazy):
+    """The card's machine may lack PyYAML, matplotlib, tokenizers and
+    transformers: importing the modules that use them loads none of them."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('tacotron2_subword_tpu_torch.{module}')\n"
+        f"print({lazy!r} in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "False"
 
 
 @pytest.mark.parametrize("banned", ["jax", "tacotron2_subword_tpu"])
