@@ -21,6 +21,12 @@ the port at full width:
    soft-DTW train step (B=8, T_out=128, bench.py's batch) with K2's and
    K3's launches counted, a profile of one step, one f32 train step on the
    card against the CPU, and the training CLI up to validation;
+ - training on a reference-format corpus on disk (``phase_train_real``):
+   the training CLI at full width with soft-DTW, SSIM and the alignment
+   loss, validation, checkpoints and checkpoint_best, a profiler trace,
+   resume (the loaded state bit-equal to the checkpoint), warm start,
+   K2's and K3's launches counted, prefetch on and off timed, and SSIM
+   on the card against the CPU;
  - the text -> wav CLI (``apps/inference.run_inference``): 4 script lines
    through the G2P front end, the int8 decode (200 steps each, K1's
    launches counted), HiFi-GAN v1 and bias removal, with each line's time
@@ -774,9 +780,11 @@ def phase_train_cli(SD):
     runs through the real entry point."""
     import contextlib
     import io
+    import shutil
     from pathlib import Path
     from tacotron2_subword_tpu_torch.apps import train as TAPP
     out_dir = Path(__file__).resolve().parent / "_runs" / "train_cli"
+    shutil.rmtree(out_dir, ignore_errors=True)  # or it would resume
     buf = io.StringIO()
     SD.grad_launches = SD.fwd_launches = 0
     t0 = time.perf_counter()
@@ -799,6 +807,298 @@ def phase_train_cli(SD):
     print("train cli", json.dumps({**res, "wall_s": wall,
                                    "k2_launches": SD.grad_launches,
                                    "k3_launches": SD.fwd_launches}))
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+REAL_TRAIN, REAL_VAL = 32, 8
+REAL_HPARAMS = ("[softdtw_loss_weight:1.0-ssim_loss_weight:1.0-"
+                "align_loss:KL-iters_per_checkpoint:4]")
+
+
+def write_real_corpus(root, seed=0):
+    """A reference-format corpus from RandomState(seed): a train split of
+    REAL_TRAIN and a val split of REAL_VAL utterances, each in its own
+    ``durs/`` (phone ID, duration), ``mels/ljspeech-mel-%05d.npy`` [80, T]
+    f32, ``subs/`` (8-24 subword IDs) and ``cls/`` (768 f32), with a
+    ``train.txt`` / ``val.txt`` list of ``wav|durs`` rows.  20-60 phones of
+    1-6 frames each; the durations are moved by one frame at a time until
+    their sum, the mel length, lies in 80-240."""
+    from tacotron2_subword_tpu_torch.config import TacotronConfig
+    cfg = TacotronConfig()
+    rng = np.random.RandomState(seed)
+    for split, n in (("train", REAL_TRAIN), ("val", REAL_VAL)):
+        d = root / split
+        for sub in ("durs", "mels", "subs", "cls"):
+            (d / sub).mkdir(parents=True, exist_ok=True)
+        rows = []
+        for i in range(n):
+            n_ph = rng.randint(20, 61)
+            durs = rng.randint(1, 7, n_ph)
+            while durs.sum() > 240:
+                durs[rng.choice(np.flatnonzero(durs > 1))] -= 1
+            while durs.sum() < 80:
+                durs[rng.choice(np.flatnonzero(durs < 6))] += 1
+            np.save(d / "durs" / f"{i}.npy", np.stack(
+                [rng.randint(0, cfg.n_symbols, n_ph), durs], axis=1))
+            np.save(d / "mels" / f"ljspeech-mel-{i + 1:05d}.npy",
+                    rng.randn(cfg.n_mel_channels, int(durs.sum())
+                              ).astype(np.float32))
+            np.save(d / "subs" / f"{i}.npy",
+                    rng.randint(0, cfg.sub_n_symbols, rng.randint(8, 25)))
+            np.save(d / "cls" / f"{i}.npy",
+                    rng.randn(cfg.bert_embedding_dim).astype(np.float32))
+            rows.append(f"wav/{i}.wav|{d / 'durs' / f'{i}.npy'}\n")
+        (root / f"{split}.txt").write_text("".join(rows))
+
+
+def real_argv(data, out, *extra):
+    tr, va = data / "train", data / "val"
+    return ["-o", str(out), "--train-list", str(data / "train.txt"),
+            "--val-list", str(data / "val.txt"),
+            "--mel-dir", str(tr / "mels"), "--sub-dir", str(tr / "subs"),
+            "--cls-dir", str(tr / "cls"), "--val-mel-dir", str(va / "mels"),
+            "--val-sub-dir", str(va / "subs"),
+            "--val-cls-dir", str(va / "cls"), "--batch-size", "8",
+            "--hparams", REAL_HPARAMS, *extra]
+
+
+def _run_cli(TAPP, argv):
+    """The training CLI in-process; (its result, its log)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = TAPP.main(argv)
+    torch.cuda.synchronize()
+    log = buf.getvalue()
+    print(log, end="")
+    return res, log
+
+
+def _state_leaves(state):
+    from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
+    return tree_leaves((state.params, state.bn_state,
+                        list(state.opt_state)))
+
+
+def check_trace(trace, steps):
+    """The CLI's Chrome trace holds a ProfilerStep span per step, kernels
+    on the card and K2 among them; returns its size in MB.  Searched as
+    text: a full-width step writes ~10^5 events."""
+    text = trace.read_text() if trace.is_file() else ""
+    marks = [f'"ProfilerStep#{i}"' in text for i in steps]
+    if not (all(marks) and '"cat": "kernel"' in text
+            and "softdtw_grad_kernel" in text):
+        raise AssertionError(f"train real: trace {trace} steps {marks}")
+    return len(text) / 1e6
+
+
+def phase_ssim(dev, gpu):
+    """SSIM (ops/ssim.py) on the card against the CPU at the mel image of
+    a 256-frame bucket, [8, 1, 80, 256] f32: value and gradient w.r.t. the
+    first image, atol 1e-5 / rtol 1e-4 (the same five f32 convolutions in
+    cuDNN's order, TF32 off).  Its device time: the forward as a CUDA
+    graph, forward + backward of ssim_mel_loss from the profiler's kernel
+    sums."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tacotron2_subword_tpu_torch.ops.ssim import ssim
+    from tacotron2_subword_tpu_torch.train_lib import ssim_mel_loss
+    rng = np.random.RandomState(5)
+    a = rng.randn(8, 1, 80, 256).astype(np.float32)
+    b = (0.7 * a + 0.5 * rng.randn(*a.shape)).astype(np.float32)
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        x = torch.from_numpy(a).to(d).requires_grad_(True)
+        v = ssim(x, torch.from_numpy(b).to(d))
+        (g,) = torch.autograd.grad(v, x)
+        if v.device != d:
+            raise AssertionError(f"ssim ran on {v.device}, not {d}")
+        out[name] = (v.detach().cpu(), g.cpu())
+    err_v = (out["cuda"][0] - out["cpu"][0]).abs().item()
+    err_g = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        if not torch.allclose(got, ref, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"ssim: card vs CPU value {err_v}, "
+                                 f"grad {err_g}")
+    x = torch.from_numpy(a[:, 0]).to(dev)
+    y = torch.from_numpy(b[:, 0]).to(dev)
+    fwd_ms = device_ms(lambda: ssim_mel_loss(x, y), 20)
+    xg = x.clone().requires_grad_(True)
+    for _ in range(3):
+        torch.autograd.grad(ssim_mel_loss(xg, y), xg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            torch.autograd.grad(ssim_mel_loss(xg, y), xg)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    row = {"shape": [8, 1, 80, 256], "value": out["cpu"][0].item(),
+           "bit_equal": all(torch.equal(a, b) for a, b in zip(out["cuda"],
+                                                              out["cpu"])),
+           "max_abs_err_value": err_v, "max_abs_err_grad": err_g,
+           "fwd_device_ms": fwd_ms,
+           "fwd_bwd_device_ms": sum(e.self_device_time_total
+                                    for e in kern) / 1e3 / 10,
+           "fwd_bwd_kernel_launches": sum(e.count for e in kern) / 10,
+           "gpu": gpu}
+    print("ssim", json.dumps(row))
+    return row
+
+
+def phase_train_real(SD, dev, gpu):
+    """The training CLI on a reference-format corpus on disk at full
+    width (TacotronConfig defaults, soft-DTW + SSIM + KL alignment, B=8,
+    prefetch 2, mel buckets 128 and 256):
+     A. 8 iterations with validation every 4, a profile of steps 5-7 and,
+        where tensorboardX and matplotlib import, TensorBoard logs:
+        checkpoint_4, checkpoint_8 and checkpoint_best; finite losses with
+        the "ssim" and "softdtw" terms; K2 == 8 launches, K3 == 2 x the
+        validation batches;
+     B. the same command to 10: it resumes from checkpoint_8 with the
+        saved state bit for bit, K2 == 2, K3 == 0;
+     C. a warm start from checkpoint_4: every param but the embedding is
+        the checkpoint's, the embedding a fresh init's, step 0;
+     D. 4 iterations with --prefetch 0 and with --prefetch 2: the same
+        first loss, and each one's s/it.
+    Returns (K2, K3) launches of run A."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+    from tacotron2_subword_tpu_torch import train_lib as TT
+    from tacotron2_subword_tpu_torch.apps import train as TAPP
+    from tacotron2_subword_tpu_torch.config import create_config
+    from tacotron2_subword_tpu_torch.data import dataset as TD
+    from tacotron2_subword_tpu_torch.utils import checkpoint as CK
+    from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
+    root = Path(__file__).resolve().parent / "_runs" / "train_real"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    write_real_corpus(data)
+    cfg = create_config(REAL_HPARAMS).replace(batch_size=8)
+    val_batches = len(list(TD.BucketedLoader(
+        TD.BertTacotron2Dataset(TD.load_filepaths(str(data / "val.txt")),
+                                *(str(data / "val" / d) for d in
+                                  ("mels", "subs", "cls")),
+                                load_alignment=True),
+        batch_size=8, with_alignment=True)))
+    logs = all(importlib.util.find_spec(m) for m in ("tensorboardX",
+                                                      "matplotlib"))
+    out, prof = root / "out", root / "prof"
+
+    # A
+    torch.cuda.reset_peak_memory_stats()
+    SD.grad_launches = SD.fwd_launches = 0
+    t0 = time.perf_counter()
+    res_a, _ = _run_cli(TAPP, real_argv(
+        data, out, "--max-iters", "8", "--profile-dir", str(prof),
+        *(["-l", str(root / "logs")] if logs else [])))
+    wall_a = time.perf_counter() - t0
+    k2, k3 = SD.grad_launches, SD.fwd_launches
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("checkpoint_4", "checkpoint_8", "checkpoint_best"):
+        for f in ("state.pt", "meta.json"):
+            if not (out / name / f).is_file():
+                raise AssertionError(f"train real: no {name}/{f}")
+    if not (res_a["iterations"] == 8 and np.isfinite(res_a["losses"]).all()
+            and np.isfinite(res_a["val_loss"])
+            and {"ssim", "softdtw"} <= set(res_a["metrics"])
+            and np.isfinite(list(res_a["metrics"].values())).all()):
+        raise AssertionError(f"train real: run A {res_a}")
+    if k2 != 8 or k3 != 2 * val_batches:
+        raise AssertionError(f"train real: K2 {k2} launches in 8 steps, K3 "
+                             f"{k3} in 2 x {val_batches} validation batches")
+    trace_mb = check_trace(prof / "trace_steps_5-7.json", (5, 6, 7))
+    if logs and not any(p.name.startswith("events.out.tfevents")
+                        for p in (root / "logs").iterdir()):
+        raise AssertionError("train real: no TensorBoard event file")
+
+    # B: resume, the loaded state spied on
+    loaded = []
+    real_load = CK.load_checkpoint
+    CK.load_checkpoint = lambda *a, **k: (loaded.append(real_load(*a, **k))
+                                          or loaded[-1])
+    try:
+        SD.grad_launches = SD.fwd_launches = 0
+        res_b, log = _run_cli(TAPP, real_argv(data, out, "--max-iters", "10"))
+        k2_b, k3_b = SD.grad_launches, SD.fwd_launches
+    finally:
+        CK.load_checkpoint = real_load
+    want = torch.load(out / "checkpoint_8" / "state.pt", map_location="cpu",
+                      weights_only=True)
+    want = TT.TrainState(want["step"], want["params"], want["bn_state"],
+                         TT.AdamState(**want["opt_state"]))
+    got = loaded[0][0]
+    same = [torch.equal(a.cpu(), b) for a, b in zip(_state_leaves(got),
+                                                     _state_leaves(want))]
+    if not (f"resumed from {out / 'checkpoint_8'} at iteration 8" in log
+            and got.step == 8 and len(same) > 100 and all(same)):
+        raise AssertionError(f"train real: resume: step {got.step}, "
+                             f"{sum(same)}/{len(same)} leaves equal")
+    if res_b["iterations"] != 10 or k2_b != 2 or k3_b != 0:
+        raise AssertionError(f"train real: run B to {res_b['iterations']}, "
+                             f"K2 {k2_b}, K3 {k3_b}")
+
+    # C: warm start, its result spied on
+    warmed = []
+    real_warm = CK.warm_start
+    CK.warm_start = lambda *a, **k: (warmed.append(real_warm(*a, **k))
+                                     or warmed[-1])
+    try:
+        res_c, log = _run_cli(TAPP, real_argv(
+            data, root / "warm", "-c", str(out / "checkpoint_4"),
+            "--warm_start", "--max-iters", "1"))
+    finally:
+        CK.warm_start = real_warm
+    ck, _ = real_load(str(out / "checkpoint_4"), "cpu")
+    fresh, _ = TT.create_train_state(torch.Generator().manual_seed(cfg.seed),
+                                     cfg, device="cpu")
+    w = warmed[0]
+    kept = all(torch.equal(a.cpu(), b) for k in ck.params if k != "embedding"
+               for a, b in zip(tree_leaves(w.params[k]),
+                               tree_leaves(ck.params[k])))
+    if not (kept and w.step == 0 and res_c["start_iteration"] == 0
+            and torch.equal(w.params["embedding"].cpu(),
+                            fresh.params["embedding"])
+            and not torch.equal(fresh.params["embedding"],
+                                ck.params["embedding"])):
+        raise AssertionError("train real: warm start")
+    shutil.rmtree(root / "warm")
+
+    # D: prefetch off and on, the same command and seed
+    sit = {}
+    first = {}
+    for depth in (0, 2):
+        d = root / f"prefetch{depth}"
+        res, _ = _run_cli(TAPP, real_argv(data, d, "--max-iters", "4",
+                                          "--prefetch", str(depth)))
+        sit[depth] = float(np.mean(res["iter_s"][1:]))
+        first[depth] = res["losses"][0]
+        shutil.rmtree(d)
+    d_first = abs(first[0] - first[2])
+    if d_first > 1e-6 * abs(first[0]):
+        raise AssertionError(f"train real: first loss with prefetch 0 "
+                             f"{first[0]}, with 2 {first[2]}")
+
+    ssim_row = phase_ssim(dev, gpu)
+    row = {"B": 8, "train": REAL_TRAIN, "val": REAL_VAL,
+           "s_per_it": float(np.mean(res_a["iter_s"][1:])),
+           "s_per_it_untraced": float(np.mean(res_a["iter_s"][1:5])),
+           "iter_s": res_a["iter_s"], "wall_s_run_a": wall_a,
+           "peak_mem_bytes": peak, "k2_launches": k2, "k3_launches": k3,
+           "val_batches": val_batches, "trace_mb": trace_mb,
+           "tensorboard": bool(logs),
+           "s_per_it_prefetch0": sit[0], "s_per_it_prefetch2": sit[2],
+           "first_loss_prefetch0_minus_2": first[0] - first[2],
+           "ssim_max_abs_err": max(ssim_row["max_abs_err_value"],
+                                   ssim_row["max_abs_err_grad"]),
+           "ssim_fwd_bwd_device_ms": ssim_row["fwd_bwd_device_ms"],
+           "metrics": res_a["metrics"], "gpu": gpu}
+    print("train real", json.dumps(row))
+    shutil.rmtree(root, ignore_errors=True)
+    return k2, k3
 
 
 CLI_LEXICON = ("an a_1 n\nanh a_1 J\nba b a_1\nbanh b a_1 J\n"
@@ -1171,6 +1471,7 @@ def main() -> int:
     k2_launches, k3_launches = phase_train(TT, SD, cfg_train, dev, gpu)
     phase_train_parity(TT, TM, cfg_train, dev)
     phase_train_cli(SD)
+    real_k2, real_k3 = phase_train_real(SD, dev, gpu)
 
     # 6. the text -> wav CLI at full width: K1 counted on its path,
     #    Griffin-Lim, one f32 line on the card against the CPU
@@ -1217,9 +1518,9 @@ def main() -> int:
     no_library = ("no single PyTorch call computes soft-DTW (a wavefront "
                   "recursion over the distance matrix)")
     sdtw = []
-    for name, key, fn, launches in (
-            ("softdtw_grad", "k2", "t2s_softdtw_grad", k2_launches),
-            ("softdtw_fwd", "k3", "t2s_softdtw_fwd", k3_launches)):
+    for name, key, fn, step_launches, real_launches in (
+            ("softdtw_grad", "k2", "t2s_softdtw_grad", k2_launches, real_k2),
+            ("softdtw_fwd", "k3", "t2s_softdtw_fwd", k3_launches, real_k3)):
         errs = [r[f"{key}_value"] for r in sdtw_rows] + (
             [r[k] for r in sdtw_rows for k in ("k2_E", "k2_global_value",
                                                "k2_global_E") if k in r]
@@ -1230,7 +1531,10 @@ def main() -> int:
             "replaces": ("tacotron2_subword_tpu/ops/softdtw.py:357"
                          if key == "k2" else
                          "tacotron2_subword_tpu/ops/softdtw.py:507"),
-            "launches": launches, "max_abs_err": max(errs),
+            "launches": step_launches + real_launches,
+            "launches_by_path": {"train_step": step_launches,
+                                 "train_cli_real_data": real_launches},
+            "max_abs_err": max(errs),
             "ms": main_row[f"{key}_ms"], "plain_ms": main_row[f"{key}_plain_ms"],
             "bound_ms": main_row[f"{key}_bound_ms"],
             "bound_by": main_row[f"{key}_bound_by"], "library_ms": None,

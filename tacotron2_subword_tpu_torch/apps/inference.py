@@ -170,12 +170,12 @@ def load_vocoder(hifigan_checkpoint: Optional[str],
                                                            ".tflite")):
         raise NotImplementedError(
             f"{hifigan_checkpoint}: ONNX/TFLite vocoders are not ported yet "
-            f"(ROADMAP Queue 1, deferred from item 6)")
+            f"(ROADMAP Queue 1 item 5)")
     if hifigan_checkpoint and os.path.isdir(hifigan_checkpoint):
         raise NotImplementedError(
             f"{hifigan_checkpoint}: Orbax generator directories of the JAX "
-            f"package cannot be read without JAX (ROADMAP Queue 1, deferred "
-            f"from item 6: a converter); pass a reference g_* torch file")
+            f"package cannot be read without JAX (ROADMAP Queue 1: the "
+            f"Orbax -> port converter); pass a reference g_* torch file")
     if hifigan_checkpoint:
         h = (HG.HifiganConfig.from_json(hifigan_config)
              if hifigan_config else HG.HifiganConfig())

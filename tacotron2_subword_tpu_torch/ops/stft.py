@@ -186,11 +186,17 @@ def _wss_correction_on(n_frames: int, filter_length: int, hop_length: int,
 # ---------------------------------------------------------------------------
 
 def _reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
-    """[B, T] reflect-padded by ``pad`` on both sides (needs pad < T)."""
-    if pad >= y.shape[-1]:
-        raise ValueError(f"reflect pad {pad} needs a signal longer than it; "
-                         f"got {y.shape[-1]} samples")
-    return F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    """[B, T] reflect-padded by ``pad`` on both sides.  Where ``pad >= T``
+    the reflection repeats, as ``np.pad`` / ``jnp.pad(mode="reflect")`` do:
+    index arithmetic with period 2 (T - 1), a constant for T = 1."""
+    T = y.shape[-1]
+    if pad < T:
+        return F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    i = torch.arange(-pad, T + pad, device=y.device)
+    if T == 1:
+        return y[:, torch.zeros_like(i)]
+    j = torch.remainder(i, 2 * (T - 1))
+    return y[:, torch.where(j >= T, 2 * (T - 1) - j, j)]
 
 
 def frame_signal(y: torch.Tensor, filter_length: int,

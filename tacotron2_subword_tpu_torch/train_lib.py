@@ -2,14 +2,13 @@
 
 Counterpart of ``tacotron2_subword_tpu/train_lib.py``: MSE on the mel and
 postnet mel, BCE-with-logits on the gate, an optional soft-DTW term on the
-postnet mel (K2 in the train step, K3 in the eval step; ``ops/softdtw.py``)
-and an optional L2/KL alignment term.  The optimizer is the JAX package's
+postnet mel (K2 in the train step, K3 in the eval step; ``ops/softdtw.py``),
+an optional 1 - SSIM term on the postnet mel (``ops/ssim.py``) and an
+optional L2/KL alignment term.  The optimizer is the JAX package's
 optax chain written out over tensors: L2 decay added to the gradient,
 global-norm clipping, Adam with bias correction, then the step -lr.  A
 non-finite gradient norm skips the update of params and optimizer state
 (the step count still moves), with no host sync.
-
-``ssim_loss_weight > 0`` is not ported yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import torch
 from tacotron2_subword_tpu_torch.config import TacotronConfig
 from tacotron2_subword_tpu_torch.models import tacotron2 as M
 from tacotron2_subword_tpu_torch.ops import softdtw as SD
+from tacotron2_subword_tpu_torch.ops.ssim import ssim
 from tacotron2_subword_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -71,15 +71,24 @@ def softdtw_mel_loss(mel_out: torch.Tensor, mel_target: torch.Tensor,
     return (per * w).sum() / torch.clamp_min(w.sum(), 1.0)
 
 
+def ssim_mel_loss(mel_out: torch.Tensor, mel_target: torch.Tensor,
+                  w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1 - SSIM of the mel images [B, n_mels, T], in f32: the reference's
+    commented-out ``-ssim(mel_out, mel_target)`` term (loss_function.py:10,
+    24) shifted by 1 to be non-negative; the (weighted) mean over the
+    batch."""
+    s = ssim(mel_out[:, None].float(), mel_target[:, None].float(),
+             size_average=w is None)
+    if w is None:
+        return 1.0 - s
+    return ((1.0 - s) * w).sum() / torch.clamp_min(w.sum(), 1.0)
+
+
 def tacotron2_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, Any],
                    cfg: TacotronConfig, iteration) -> Dict[str, torch.Tensor]:
-    """dict(total, mel, gate, align, align_bert[, softdtw]).  An optional
-    ``batch["weight"]`` [B] leaves out the duplicates that fill a partial
-    batch; all ones gives the plain means."""
-    if cfg.ssim_loss_weight > 0.0:
-        raise NotImplementedError(
-            "ssim_loss_weight > 0: the SSIM loss is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+    """dict(total, mel, gate, align, align_bert[, softdtw][, ssim]).  An
+    optional ``batch["weight"]`` [B] leaves out the duplicates that fill a
+    partial batch; all ones gives the plain means."""
     mel_target = batch["mels"]
     gate_target = batch["gate_target"]
     w = batch.get("weight")
@@ -105,6 +114,10 @@ def tacotron2_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, Any],
         sdtw = softdtw_mel_loss(outputs["mel_postnet"], mel_target, cfg, w)
         losses["softdtw"] = sdtw
         total = total + cfg.softdtw_loss_weight * sdtw
+    if cfg.ssim_loss_weight > 0.0:
+        sl = ssim_mel_loss(outputs["mel_postnet"], mel_target, w)
+        losses["ssim"] = sl
+        total = total + cfg.ssim_loss_weight * sl
     if cfg.align_loss and "align_target" in batch:
         if cfg.n_frames_per_step != 1:
             raise ValueError("align_loss requires n_frames_per_step=1")

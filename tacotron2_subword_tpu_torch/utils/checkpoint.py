@@ -1,7 +1,8 @@
-"""Checkpoints of the port: save, find the newest, load.
+"""Checkpoints of the port: save, find the newest, load, warm start, and
+keep the best.
 
-Counterpart of the save/load half of ``tacotron2_subword_tpu/utils/
-checkpoint.py`` (reference train.py:100-123, 182-186), in the port's own
+Counterpart of ``tacotron2_subword_tpu/utils/checkpoint.py`` (reference
+train.py:86-123, 182-186, 366-368), in the port's own
 format: a ``checkpoint_{step}/`` directory under the output dir holding
 ``state.pt``, one ``torch.save`` file of {step, params, bn_state,
 opt_state} (tensors, lists and dicts only, so it loads with
@@ -19,13 +20,13 @@ import glob
 import json
 import os
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from tacotron2_subword_tpu_torch.train_lib import AdamState, TrainState
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
-from tacotron2_subword_tpu_torch.utils.tree import to_device
+from tacotron2_subword_tpu_torch.utils.tree import to_device, tree_leaves
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
@@ -95,3 +96,45 @@ def load_checkpoint(path: str, device="cuda"
         with open(meta_path) as f:
             meta = json.load(f)
     return state, meta
+
+
+def warm_start(path: str, state: TrainState,
+               ignore_layers: Sequence[str] = ("embedding",)) -> TrainState:
+    """``state`` with the params and BN statistics of the checkpoint at
+    ``path``, but the current values for each top-level param key in
+    ``ignore_layers``; step and optimizer state stay ``state``'s
+    (reference train.py:86-98)."""
+    device = tree_leaves(state.params)[0].device
+    loaded, _ = load_checkpoint(path, device)
+    params = dict(loaded.params)
+    for layer in ignore_layers:
+        if layer in params:
+            params[layer] = state.params[layer]
+    return state._replace(params=params, bn_state=loaded.bn_state)
+
+
+class BestTracker:
+    """Keeps ``output_dir/checkpoint_best``: the lowest validation loss so
+    far, read from its ``meta.json`` at start (reference
+    train.py:366-368)."""
+
+    def __init__(self, output_dir: str):
+        self.output_dir = os.path.abspath(output_dir)
+        self.best = float("inf")
+        best_meta = os.path.join(self.output_dir, "checkpoint_best",
+                                 META_FILE)
+        if os.path.exists(best_meta):
+            with open(best_meta) as f:
+                self.best = json.load(f).get("val_loss", float("inf"))
+
+    def update(self, state: TrainState, val_loss: float,
+               learning_rate: float) -> bool:
+        """Save ``state`` as checkpoint_best when ``val_loss`` is below the
+        best so far; True when it saved."""
+        if val_loss < self.best:
+            self.best = val_loss
+            save_checkpoint(state, self.output_dir, val_loss=val_loss,
+                            learning_rate=learning_rate,
+                            name="checkpoint_best")
+            return True
+        return False

@@ -266,3 +266,87 @@ def test_hifigan_reference_checkpoint_matches_jax(tmp_path, resblock, fused):
     assert name == "hifigan"
     v = vocode(torch.from_numpy(mel)).numpy()
     assert np.abs(v - j[:, 0]).max() <= 1e-5 * np.abs(j).max()
+
+
+def _trained_state(steps=2):
+    """A SMALL port state after ``steps`` train steps (Adam moments and BN
+    statistics that a fresh init does not have)."""
+    cfg = TConfig(**dataclasses.asdict(SMALL))
+    state, tx = TT.create_train_state(torch.Generator().manual_seed(3), cfg,
+                                      device="cpu")
+    b = make_batch(SMALL)
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+    for k in ("text", "sub", "text_lengths", "sub_lengths",
+              "output_lengths"):
+        batch[k] = batch[k].long()
+    batch["gate_target"] = TT.make_gate_target(batch["output_lengths"],
+                                               batch["mels"].shape[2])
+    for i in range(steps):
+        state, _ = TT.train_step(state, batch, cfg, tx,
+                                 generator=torch.Generator().manual_seed(i))
+    return state, tx, batch, cfg
+
+
+def test_round_trip_of_a_trained_state_continues_bit_equal(tmp_path):
+    """As the JAX package's round-trip test: after real steps, the loaded
+    state equals the saved one and the next step from it equals the next
+    step from the original, bit for bit."""
+    state, tx, batch, cfg = _trained_state()
+    back, _ = TCK.load_checkpoint(TCK.save_checkpoint(state, str(tmp_path)),
+                                  device="cpu")
+    assert back.step == state.step == 2
+    (a, ma), (b, mb) = [TT.train_step(
+        s, batch, cfg, tx, generator=torch.Generator().manual_seed(9))
+        for s in (state, back)]
+    assert a.step == b.step == 3
+    assert ma["total"].item() == mb["total"].item()
+    for x, y in zip(tree_leaves((a.params, a.bn_state, list(a.opt_state))),
+                    tree_leaves((b.params, b.bn_state, list(b.opt_state)))):
+        assert torch.equal(x, y)
+
+
+def test_warm_start_keeps_ignore_layers_and_loads_the_rest(tmp_path):
+    trained, _, _, _ = _trained_state()
+    path = TCK.save_checkpoint(trained, str(tmp_path))
+    fresh = _port_state(step=0, seed=99)
+    warm = TCK.warm_start(path, fresh, ignore_layers=("embedding",
+                                                      "embedding_sub"))
+    assert warm.step == 0
+    for k in trained.params:
+        src = fresh if k in ("embedding", "embedding_sub") else trained
+        for a, b in zip(tree_leaves(warm.params[k]),
+                        tree_leaves(src.params[k])):
+            assert torch.equal(a, b), k
+    for a, b in zip(tree_leaves(warm.bn_state),
+                    tree_leaves(trained.bn_state)):
+        assert torch.equal(a, b)
+    # the optimizer state stays the current (fresh) one
+    for a, b in zip(tree_leaves(list(warm.opt_state)),
+                    tree_leaves(list(fresh.opt_state))):
+        assert torch.equal(a, b)
+    # the default keeps only the phone embedding
+    warm = TCK.warm_start(path, fresh)
+    assert torch.equal(warm.params["embedding"], fresh.params["embedding"])
+    assert torch.equal(warm.params["embedding_sub"],
+                       trained.params["embedding_sub"])
+
+
+def test_best_tracker_saves_only_on_a_fall(tmp_path):
+    state = _port_state(step=4)
+    best = os.path.join(str(tmp_path), "checkpoint_best", "meta.json")
+    tracker = TCK.BestTracker(str(tmp_path))
+    assert tracker.best == float("inf")
+    assert tracker.update(state, 2.0, 1e-3)
+    assert not tracker.update(state._replace(step=5), 3.0, 1e-3)
+    with open(best) as f:
+        assert json.load(f) == {"iteration": 4, "val_loss": 2.0,
+                                "learning_rate": 1e-3}
+    assert tracker.update(state._replace(step=6), 1.0, 1e-3)
+    # a new tracker reads the best so far from checkpoint_best/meta.json
+    again = TCK.BestTracker(str(tmp_path))
+    assert again.best == 1.0
+    assert not again.update(state._replace(step=7), 1.5, 1e-3)
+    with open(best) as f:
+        assert json.load(f)["iteration"] == 6
+    back, _ = TCK.load_checkpoint(os.path.dirname(best), device="cpu")
+    assert back.step == 6

@@ -28,20 +28,21 @@ def test_port_has_the_slice_modules():
                  "text", "text.lexicon", "text.fst_g2p", "text.g2p",
                  "text.text_to_sequence", "text.bert", "ops.stft",
                  "models.denoiser", "utils.import_torch", "utils.checkpoint",
-                 "utils.logging_utils"):
+                 "utils.logging_utils", "ops.ssim"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
     # the G2P engine is built from the port's own copy of the C++ source
     assert (ROOT / "tacotron2_subword_tpu_torch" / "native"
             / "g2p_fst.cpp").is_file()
 
 
-@pytest.mark.parametrize("module,lazy", [("text.g2p", "yaml"),
-                                         ("utils.logging_utils", "matplotlib"),
-                                         ("text.bert", "tokenizers"),
-                                         ("text.bert", "transformers")])
+@pytest.mark.parametrize("module,lazy", [
+    ("text.g2p", "yaml"), ("utils.logging_utils", "matplotlib"),
+    ("utils.logging_utils", "tensorboardX"), ("text.bert", "tokenizers"),
+    ("text.bert", "transformers")])
 def test_optional_packages_load_only_when_used(module, lazy):
-    """The card's machine may lack PyYAML, matplotlib, tokenizers and
-    transformers: importing the modules that use them loads none of them."""
+    """The card's machine may lack PyYAML, matplotlib, tensorboardX,
+    tokenizers and transformers: importing the modules that use them loads
+    none of them."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('tacotron2_subword_tpu_torch.{module}')\n"

@@ -70,6 +70,28 @@ def test_stft_and_mels_match_jax(shape):
                                   np.asarray(JS.frame_signal(yj, 1024, 256)))
 
 
+@pytest.mark.parametrize("n", [400, 300])
+def test_mels_of_signals_shorter_than_the_pad_match_jax(n):
+    """A signal no longer than the reflect pad (512 for mel_spectrogram,
+    384 for hifigan_mel_spectrogram) reflects repeatedly, as jnp.pad."""
+    y = _signal((2, n), seed=3)
+    yt, yj = torch.from_numpy(y), jnp.asarray(y)
+    got, want = TS.mel_spectrogram(yt), JS.mel_spectrogram(yj)
+    assert got.shape == (2, 80, n // 256 + 1)
+    assert _rel(got, want) <= 1e-5
+    assert _rel(TS.hifigan_mel_spectrogram(yt),
+                JS.hifigan_mel_spectrogram(yj)) <= 1e-5
+
+
+@pytest.mark.parametrize("n,pad", [(1, 5), (3, 10), (7, 512), (400, 512),
+                                   (513, 512)])
+def test_reflect_pad_matches_numpy(n, pad):
+    y = np.random.RandomState(n).randn(2, n).astype(np.float32)
+    np.testing.assert_array_equal(
+        TS._reflect_pad(torch.from_numpy(y), pad).numpy(),
+        np.pad(y, ((0, 0), (pad, pad)), mode="reflect"))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_inverse_stft_matches_jax(shape):
     rng = np.random.RandomState(1)

@@ -312,11 +312,13 @@ def _loss_inputs(cfg, weight):
     return params, bn, tp, tbn, b, tb
 
 
+@pytest.mark.parametrize("ssim", [0.0, 0.5])
 @pytest.mark.parametrize("align", ["", "L2", "KL"])
 @pytest.mark.parametrize("weight", [False, True])
-def test_losses_match_jax(align, weight):
-    """Every loss term on the same outputs, with and without ``weight``."""
-    cfg = LOSS_CFG.replace(align_loss=align)
+def test_losses_match_jax(align, weight, ssim):
+    """Every loss term on the same outputs, with and without ``weight``,
+    with and without the SSIM term."""
+    cfg = LOSS_CFG.replace(align_loss=align, ssim_loss_weight=ssim)
     rng = np.random.RandomState(10)
     outs = {"mel": rng.randn(3, 5, 13), "mel_postnet": rng.randn(3, 5, 13),
             "gate": rng.randn(3, 13) * 3, "alignments": rng.rand(3, 13, 11),
@@ -332,14 +334,6 @@ def test_losses_match_jax(align, weight):
         for k in j:
             np.testing.assert_allclose(t[k].item(), float(j[k]), rtol=1e-5,
                                        atol=1e-7, err_msg=k)
-
-
-def test_ssim_loss_is_not_ported():
-    cfg = _port_cfg(LOSS_CFG.replace(ssim_loss_weight=0.5))
-    _, _, _, _, _, tb = _loss_inputs(LOSS_CFG, False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TT.tacotron2_loss({"mel": tb["mels"], "mel_postnet": tb["mels"],
-                           "gate": tb["gate_target"]}, tb, cfg, 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -377,6 +371,12 @@ def test_gradients_match_jax(custom):
     """Gradient of the total loss (mel, gate, soft-DTW) leaf by leaf, with
     the port's hand-routed decoder backward and with plain autograd."""
     jg, tg = _grads_both(LOSS_CFG.replace(custom_decoder_vjp=custom))
+    _check_grads(tg, jg)
+
+
+def test_gradients_with_ssim_match_jax():
+    """Gradient of the total loss with the SSIM term on as well."""
+    jg, tg = _grads_both(LOSS_CFG.replace(ssim_loss_weight=0.5))
     _check_grads(tg, jg)
 
 
@@ -449,9 +449,11 @@ def test_nan_gradient_skips_the_update():
         assert torch.equal(a, b)
 
 
-def test_train_step_and_eval_step_match_jax():
-    """One full train step (forward, loss with soft-DTW, backward through
-    the custom decoder VJP, Adam) and one eval step, end to end.
+@pytest.mark.parametrize("ssim", [0.0, 0.5])
+def test_train_step_and_eval_step_match_jax(ssim):
+    """One full train step (forward, loss with soft-DTW and, where ``ssim``
+    is not 0, SSIM, backward through the custom decoder VJP, Adam) and one
+    eval step, end to end.
 
     Updated params: Adam's first step is -lr * g / (|g| + eps), which
     turns the rounding noise of a near-zero gradient element into up to lr
@@ -459,7 +461,7 @@ def test_train_step_and_eval_step_match_jax():
     leaf's elements to 2e-5, but the conv biases: each feeds a
     training-mode BatchNorm, so its true gradient is 0 and all of it is
     weight decay plus noise."""
-    cfg = LOSS_CFG
+    cfg = LOSS_CFG.replace(ssim_loss_weight=ssim)
     jstate, jtx, tstate, tx, tcfg = _states(cfg)
     b, tb = _batch(cfg)
     key = jax.random.PRNGKey(12)
@@ -550,5 +552,6 @@ def test_train_cli_runs_synthetic_iterations_with_validation(tmp_path,
     assert "reached max iters" in log
     assert out["iterations"] == 2
     assert np.isfinite(out["loss"]) and np.isfinite(out["val_loss"])
-    with pytest.raises(SystemExit):  # flags of the unported paths
-        TAPP.build_argparser().parse_args(["-o", "x", "--train-list", "f"])
+    args = TAPP.build_argparser().parse_args(["-o", "x", "--train-list",
+                                              "f"])
+    assert args.train_list == "f" and args.prefetch == 2
