@@ -31,7 +31,14 @@ the port at full width:
    through the G2P front end, the int8 decode (200 steps each, K1's
    launches counted), HiFi-GAN v1 and bias removal, with each line's time
    split by stage; one line through Griffin-Lim with its spectral
-   convergence; one f32 line on the card against the CPU.
+   convergence; one f32 line on the card against the CPU;
+ - the after-training pipeline (``phase_after_training``): GTA mels of a
+   seeded corpus at B=16 (one f32 batch card vs CPU), HiFi-GAN v1 with MPD
+   + MSD trained on them at B=16 (checkpoints, resume bit for bit,
+   --mel-only, D / G step times, one f32 step card vs CPU), the inference
+   CLI with that generator, remove_silence, the MCD / soft-DTW evaluation
+   (K3 once per file, up to 19 s wavs, held to its plain version) and the
+   int8 checkpoint sweep (K1 counted).
 
 ``python3 chip_smoke.py --k1-splits`` builds the kernels and times K1 at
 every number of K splits instead (the table behind ``ops/quant.k1_plan``).
@@ -1109,41 +1116,11 @@ CLI_STEPS = 200
 CLI_PARITY_STEPS = 20
 
 
-def reference_hifigan_state_dict(params):
-    """The port's HiFi-GAN tree as the reference's generator state dict:
-    the tree's path is the module name; v / g / w / b are weight_v /
-    weight_g / weight / bias."""
-    names = {"v": "weight_v", "g": "weight_g", "w": "weight", "b": "bias"}
-    sd = {}
-
-    def walk(tree, prefix):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                walk(v, prefix + names[k] if k in names else f"{prefix}{k}.")
-        elif isinstance(tree, list):
-            for i, v in enumerate(tree):
-                walk(v, f"{prefix}{i}.")
-        else:
-            sd[prefix] = tree.detach().cpu().contiguous()
-    walk(params, "")
-    return sd
-
-
-def cli_assets(root):
-    """The CLI's inputs under ``root``: the small lexicon under the three
-    reference names with a phone_id_list.txt, a full-width acoustic model
-    with random weights (seed 0) saved by the port's save_checkpoint, a
-    HiFi-GAN v1 generator with random weight-normed weights (seed 1, g = 1
-    so each row keeps the signal's scale, 0.1 on conv_post so that tanh
-    and the int16 clip are not saturated) as a reference-format
-    {'generator': state_dict} file with its JSON config, and the 4-line
-    script."""
+def write_resources(root):
+    """The small lexicon under the three reference names, with a
+    phone_id_list.txt, in ``root/res``; returns that dir."""
     import os
-    from tacotron2_subword_tpu_torch import train_lib as TT
-    from tacotron2_subword_tpu_torch.config import TacotronConfig
-    from tacotron2_subword_tpu_torch.models import hifigan as HG
     from tacotron2_subword_tpu_torch.text import lexicon as TL
-    from tacotron2_subword_tpu_torch.utils import checkpoint as CK
     res = os.path.join(root, "res")
     os.makedirs(res, exist_ok=True)
     for name in ("small.lex",
@@ -1158,21 +1135,27 @@ def cli_assets(root):
     with open(os.path.join(res, "phone_id_list.txt"), "w",
               encoding="utf-8") as f:
         f.writelines(f"{p}\t{i}\n" for p, i in p2i.items())
-    gen = torch.Generator().manual_seed(0)
-    state, _ = TT.create_train_state(gen, TacotronConfig(), device="cpu")
-    ckpt = CK.save_checkpoint(state._replace(step=1), os.path.join(root, "ck"))
-    h = HG.HifiganConfig()
-    g = HG.init_generator(torch.Generator().manual_seed(1), h, device="cpu")
+    return res
+
+
+def unit_norm_generator(HG, h, seed):
+    """A random weight-normed HiFi-GAN generator (CPU) with g = 1, so each
+    row keeps the signal's scale, and 0.1 on conv_post, so that tanh and
+    the int16 clip are not saturated (an untouched init is so soft that
+    remove_silence trims it away)."""
+    g = HG.init_generator(torch.Generator().manual_seed(seed), h,
+                          device="cpu")
     unit = lambda t: (
         {k: torch.ones_like(v) if k == "g" else unit(v) for k, v in t.items()}
         if isinstance(t, dict) else [unit(v) for v in t]
         if isinstance(t, list) else t)
     g = unit(g)
-    g["conv_post"]["g"] = g["conv_post"]["g"] * 0.1  # tanh off saturation
-    gpath = os.path.join(root, "g_00000001")
-    torch.save({"generator": reference_hifigan_state_dict(g)}, gpath)
-    cpath = os.path.join(root, "config_v1.json")
-    with open(cpath, "w") as f:
+    g["conv_post"]["g"] = g["conv_post"]["g"] * 0.1
+    return g
+
+
+def write_hifigan_config(path, h):
+    with open(path, "w") as f:
         json.dump({"resblock": h.resblock,
                    "upsample_rates": list(h.upsample_rates),
                    "upsample_kernel_sizes": list(h.upsample_kernel_sizes),
@@ -1182,6 +1165,30 @@ def cli_assets(root):
                        list(d) for d in h.resblock_dilation_sizes],
                    "num_mels": h.num_mels,
                    "sampling_rate": h.sampling_rate}, f)
+
+
+def cli_assets(root):
+    """The CLI's inputs under ``root``: the resources, a full-width
+    acoustic model with random weights (seed 0) saved by the port's
+    save_checkpoint, a HiFi-GAN v1 generator (``unit_norm_generator``, seed
+    1) as a reference-format {'generator': state_dict} file written by
+    ``HG.export_torch_generator``, with its JSON config, and the 4-line
+    script."""
+    import os
+    from tacotron2_subword_tpu_torch import train_lib as TT
+    from tacotron2_subword_tpu_torch.config import TacotronConfig
+    from tacotron2_subword_tpu_torch.models import hifigan as HG
+    from tacotron2_subword_tpu_torch.utils import checkpoint as CK
+    res = write_resources(root)
+    gen = torch.Generator().manual_seed(0)
+    state, _ = TT.create_train_state(gen, TacotronConfig(), device="cpu")
+    ckpt = CK.save_checkpoint(state._replace(step=1), os.path.join(root, "ck"))
+    h = HG.HifiganConfig()
+    gpath = os.path.join(root, "g_00000001")
+    torch.save({"generator": HG.export_torch_generator(
+        unit_norm_generator(HG, h, 1))}, gpath)
+    cpath = os.path.join(root, "config_v1.json")
+    write_hifigan_config(cpath, h)
     script = os.path.join(root, "script.txt")
     with open(script, "w", encoding="utf-8") as f:
         f.write(CLI_SCRIPT)
@@ -1352,6 +1359,501 @@ def phase_cli(Q, dev, gpu):
     return launches
 
 
+AT_TRAIN = 16        # utterances of the after-training corpus, 1-4 s
+AT_GAN_ITERS = 4     # GAN iterations before the resume
+AT_STEPS = 200       # decoder steps of the inference CLI and the sweep
+AT_INT8 = "[decode_quant:int8]"
+# the frame near which the seeded checkpoints' lines stop (timer_gate), at
+# the sweep's gate threshold 0.5 (the CLI's default); the sweep asserts
+# every line ran AT_MIN_FRAMES frames or more and stopped by AT_STEPS
+AT_STOP = 130
+AT_MIN_FRAMES = 100
+# one f32 GAN step at B=2, card vs CPU: each leaf's gradient within
+# GAN_GRAD_RTOL of its largest element and GAN_GRAD_NORM_RTOL of its norm,
+# the params after it within GAN_PARAM_ATOL
+# (the readings on an H100: G's gradients 2.3e-3 / 3.5e-3 of the max and
+# 7.8e-4 of the norm, D's 7.2e-6; params 8.7e-7 to 1.07e-5: PERF.md)
+GAN_GRAD_RTOL = 2e-2
+GAN_GRAD_NORM_RTOL = 5e-3
+GAN_PARAM_ATOL = 5e-5
+# seconds of the (synthesized, ground-truth) benchmark pairs: the long one
+# gives K3 N, M >= 1520 frames (16 warps, 4 strips, boundary rows in the
+# scratch: ops/softdtw._k3_smem_bytes)
+AT_PAIRS = ((3.1, 2.9), (18.5, 19.0))
+
+
+def at_tone(rng, seconds, sr=22050):
+    """A seeded voiced-like wav in [-1, 1]: an F0 glide in 100-250 Hz with
+    4 harmonics under a syllable-rate envelope, plus noise."""
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = rng.uniform(100, 250) * (1 + 0.2 * np.sin(
+        2 * np.pi * rng.uniform(0.2, 1.0) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    w = sum(rng.uniform(0.05, 0.25) / k * np.sin(k * phase)
+            for k in range(1, 5))
+    env = 0.4 + 0.6 * np.abs(np.sin(2 * np.pi * rng.uniform(1, 3) * t))
+    return (w * env + 0.01 * rng.randn(n)).astype(np.float32)
+
+
+def write_wav16(path, wav, sr=22050):
+    from scipy.io.wavfile import write
+    write(str(path), sr, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+
+
+def write_at_corpus(root, rng):
+    """AT_TRAIN utterances of 1-4 s in the reference layout: ``wav/`` (22050
+    Hz int16), ``durs/`` (phone ID, frames; the frames sum to the mel
+    length len // 256 + 1, 4 per phone), ``subs/``, ``cls/`` (768 f32) and
+    a ``train.txt`` of ``wav|durs`` rows.  Returns the wav lengths."""
+    from tacotron2_subword_tpu_torch.config import TacotronConfig
+    cfg = TacotronConfig()
+    for sub in ("wav", "durs", "subs", "cls"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    rows, lens = [], []
+    for i in range(AT_TRAIN):
+        wav = at_tone(rng, rng.uniform(1.0, 4.0))
+        write_wav16(root / "wav" / f"utt{i}.wav", wav)
+        lens.append(len(wav))
+        T = len(wav) // 256 + 1
+        n_ph = T // 4
+        durs = np.full(n_ph, T // n_ph)
+        durs[:T % n_ph] += 1
+        np.save(root / "durs" / f"{i}.npy", np.stack(
+            [rng.randint(1, cfg.n_symbols, n_ph), durs], axis=1
+        ).astype(np.int32))
+        np.save(root / "subs" / f"{i}.npy",
+                rng.randint(0, cfg.sub_n_symbols, n_ph // 3))
+        np.save(root / "cls" / f"{i}.npy",
+                rng.randn(cfg.bert_embedding_dim).astype(np.float32))
+        rows.append(f"{root / 'wav' / f'utt{i}.wav'}|"
+                    f"{root / 'durs' / f'{i}.npy'}\n")
+    (root / "train.txt").write_text("".join(rows))
+    return lens
+
+
+def timer_gate(dp, stop_at: int):
+    """Give the random decoder params ``dp`` a stop token that fires near
+    frame ``stop_at`` at gate threshold 0.5, as a trained decoder's fires
+    at the end of its text (random weights hold the gate's probability
+    near 0.5 at every frame, so a line stops at its first frame or runs to
+    the step limit).  Unit 0 of the decoder LSTM becomes a counter: its
+    input, forget and output gates are held open (bias 12), its cell input
+    is atanh(1 / stop_at) with every weight into its four gates scaled by
+    1e-4, so its cell is ~t / stop_at and its output tanh(t / stop_at) at
+    frame t.  The gate layer reads that output with weight 8 and bias
+    -8 tanh(1): its logit crosses 0 near t = stop_at, rising 3.4 /
+    stop_at per frame there; the rest of the gate layer stays random.
+    In place."""
+    import math
+    r, g = dp["decoder_rnn"], dp["gate_layer"]
+    H = r["w_hh"].shape[1]
+    rows = [0, H, 2 * H, 3 * H]   # unit 0's i, f, g, o rows
+    with torch.no_grad():
+        for k in ("w_ih", "w_hh"):
+            r[k][rows] *= 1e-4
+        r["b_hh"][rows] = 0.0
+        r["b_ih"][rows] = torch.tensor(
+            [12.0, 12.0, math.atanh(1.0 / stop_at), 12.0])
+        g["w"][0, 0] = 8.0
+        g["b"][0] = -8.0 * math.tanh(1.0)
+
+
+def _spy(module, name, calls):
+    """Replace ``module.name`` by a wrapper that appends (args, result) to
+    ``calls``; returns a function that puts the original back."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, out))
+        return out
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def _timed(fn, reps=3):
+    """Mean wall s of ``fn`` over ``reps`` calls after one warm-up, each
+    ended by a device sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_after_training(Q, SD, dev, gpu):
+    """The after-training pipeline at full width (TacotronConfig, HiFi-GAN
+    v1 with MPD + MSD), every CLI in-process through its main(argv):
+     1. a seeded corpus: AT_TRAIN wavs of 1-4 s with durations, subword IDs
+        and [CLS]; two full-width acoustic checkpoints (seeds 0 and 1, steps
+        100 and 200, a ``timer_gate`` stopping their lines near frame
+        AT_STOP) by save_checkpoint;
+     2. GTA over the train list at B=16: each mel has the target's frames;
+        one f32 batch, dropout off, on the card against the CPU;
+     3. HiFi-GAN on the GTA mels at B=16, segment 8192: from a seeded state
+        file (``unit_norm_generator``, fresh MPD/MSD and Adam) AT_GAN_ITERS
+        iterations with a checkpoint, --resume for 2 (the state handed to
+        the loop bit-equal to the file; iterations and loss-curve rows go
+        on), --mel-only --stft-loss-weight 1 for 2 (discriminators frozen);
+        D and G step times and peak memory; one f32 step at B=2 on the card
+        against the CPU from the same state and batch;
+     4. the inference CLI with the g_ file just written (int8 decode, 4
+        lines x AT_STEPS steps, K1 counted), then remove_silence;
+     5. evaluation mcd and softdtw against ground-truth wavs (the 4 lines
+        against corpus wavs, plus 2 seeded pairs, one of 18-19 s): K3 once
+        per file, each value bit-equal to its plain version, its device ms
+        at each shape with bound and plain ms;
+     6. best_checkpoint over both checkpoints with the int8 decode and the
+        port-trained g_ file at the gate threshold 0.5: every line stops
+        between AT_MIN_FRAMES and AT_STEPS frames and is scored; K1 == 2 x
+        decoder steps; a second sweep skips every row.
+    Returns {k1: launches, k3: launches, k3_shapes: rows}."""
+    import importlib.util
+    import os
+    import shutil
+    from pathlib import Path
+    from tacotron2_subword_tpu_torch import train_lib as TT
+    from tacotron2_subword_tpu_torch.apps import best_checkpoint as TBC
+    from tacotron2_subword_tpu_torch.apps import evaluation as TE
+    from tacotron2_subword_tpu_torch.apps import gta as TG
+    from tacotron2_subword_tpu_torch.apps import inference as TI
+    from tacotron2_subword_tpu_torch.apps import remove_silence as TRS
+    from tacotron2_subword_tpu_torch.apps import train_hifigan as TTH
+    from tacotron2_subword_tpu_torch.config import (TacotronConfig,
+                                                    create_config)
+    from tacotron2_subword_tpu_torch.models import hifigan as HG
+    from tacotron2_subword_tpu_torch.models import tacotron2 as TM
+    from tacotron2_subword_tpu_torch.utils import checkpoint as CK
+    from tacotron2_subword_tpu_torch.utils.tree import (to_device,
+                                                        tree_leaves)
+
+    root = Path(__file__).resolve().parent / "_runs" / "after_training"
+    shutil.rmtree(root, ignore_errors=True)
+    data, ck, gt = root / "data", root / "ck", root / "gt"
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    lens = write_at_corpus(data, rng)
+    res = write_resources(str(root))
+    os.environ["T2S_RESOURCES_DIR"] = res
+    for step, seed in ((100, 0), (200, 1)):
+        state, _ = TT.create_train_state(torch.Generator().manual_seed(seed),
+                                         TacotronConfig(), device="cpu")
+        timer_gate(state.params["decoder"], AT_STOP)
+        CK.save_checkpoint(state._replace(step=step), str(ck))
+        del state
+    print(f"after-training: corpus and checkpoints in "
+          f"{time.perf_counter() - t0:.2f} s")
+    report = {"gpu": gpu}
+
+    # 2. GTA
+    gta = root / "gta"
+    gta_argv = [str(data / "train.txt"), str(ck / "checkpoint_200"),
+                str(gta), "--sub-dir", str(data / "subs"), "--cls-dir",
+                str(data / "cls"), "--batch-size", "16", "--device", str(dev)]
+    fwd_s = []
+    real_forward = TM.forward
+
+    def timed_forward(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_forward(*a, **k)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t)
+        return out
+    TM.forward = timed_forward
+    try:
+        t0 = time.perf_counter()
+        n_gta = TG.main(gta_argv)
+        gta_wall = time.perf_counter() - t0
+        n_again = TG.main(gta_argv + ["--overwrite"])
+    finally:
+        TM.forward = real_forward
+    if n_gta != AT_TRAIN or n_again != AT_TRAIN or len(fwd_s) != 2:
+        raise AssertionError(f"gta: {n_gta}, {n_again} mels in "
+                             f"{len(fwd_s)} batches")
+    for i, n in enumerate(lens):
+        m = np.load(gta / f"utt{i}.npy")
+        if m.shape != (80, n // 256 + 1) or not np.isfinite(m).all():
+            raise AssertionError(f"gta: utt{i} {m.shape}, want "
+                                 f"(80, {n // 256 + 1})")
+    # one f32 batch (the 2 shortest), dropout off, card vs CPU
+    cfg32 = create_config("[parity_mode:true-prenet_dropout_always_on:false]")
+    args32 = TG.build_argparser().parse_args(gta_argv + ["--overwrite"])
+    utts = sorted(TG.read_utterances(args32, cfg32),
+                  key=lambda u: u["mel"].shape[1])[:2]
+    outs = {}
+    with torch.inference_mode():
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            p, bn = TI.load_acoustic_model(str(ck / "checkpoint_200"), cfg32,
+                                           d)
+            o, _ = TM.forward(p, bn, cfg32, TG.make_batch(utts, d),
+                              training=False)
+            outs[name] = o["mel_postnet"].cpu()
+    gta_err = ((outs["card"] - outs["cpu"]).abs().max()
+               / outs["cpu"].abs().max()).item()
+    if not gta_err <= 1e-4:
+        raise AssertionError(f"gta f32 batch, card vs CPU: {gta_err}")
+    report["gta"] = {"utts": AT_TRAIN, "B": 16, "wall_s": gta_wall,
+                     "batch_ms_first": fwd_s[0] * 1e3,
+                     "batch_ms": fwd_s[1] * 1e3,
+                     "f32_card_vs_cpu": gta_err}
+    print("after-training gta", json.dumps(report["gta"]))
+
+    # 3. HiFi-GAN on the GTA mels
+    h = HG.HifiganConfig()
+    hifi = root / "hifigan"
+    hifi.mkdir()
+    g0 = unit_norm_generator(HG, h, 1)
+    d0 = HG.init_discriminators(torch.Generator().manual_seed(2), "cpu")
+    tx0 = TTH.make_optimizer(2e-4)
+    TTH.save_gan_state(str(hifi / "state_00000000"), TTH.GanState(
+        g0, d0, tx0.init(g0), tx0.init(d0)), 0)
+    base = ["-o", str(hifi), "--wav-dir", str(data / "wav"), "--mel-dir",
+            str(gta), "--batch-size", "16", "--log-interval", "2",
+            "--device", str(dev)]
+    restored = []
+    undo = _spy(TTH, "restore_gan_state", restored)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        r1 = TTH.main(base + ["--resume", str(hifi / "state_00000000"),
+                              "--iters", str(AT_GAN_ITERS),
+                              "--iters-per-checkpoint", str(AT_GAN_ITERS)])
+        peak = torch.cuda.max_memory_allocated()
+        s4 = f"state_{AT_GAN_ITERS:08d}"
+        saved = torch.load(hifi / s4, map_location="cpu", weights_only=True)
+        r2 = TTH.main(base + ["--resume", str(hifi / s4), "--iters", "2",
+                              "--iters-per-checkpoint", "2"])
+        s6 = f"state_{AT_GAN_ITERS + 2:08d}"
+        r3 = TTH.main(base + ["--resume", str(hifi / s6), "--iters", "2",
+                              "--iters-per-checkpoint", "2", "--mel-only",
+                              "--stft-loss-weight", "1.0"])
+    finally:
+        undo()
+    last = AT_GAN_ITERS + 4
+    got = restored[1][1][0]
+    same = [torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves([got.gen, got.disc, got.opt_g._asdict(),
+                     got.opt_d._asdict()]),
+        tree_leaves([saved["gen"], saved["disc"], saved["opt_g"],
+                     saved["opt_d"]]))]
+    if not (len(same) > 300 and all(same)
+            and restored[1][1][1] == AT_GAN_ITERS):
+        raise AssertionError(f"hifigan resume: {sum(same)}/{len(same)} "
+                             f"leaves equal")
+    s8 = torch.load(hifi / f"state_{last:08d}", map_location="cpu",
+                    weights_only=True)
+    s6d = torch.load(hifi / s6, map_location="cpu", weights_only=True)
+    frozen = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(s8["disc"]), tree_leaves(s6d["disc"])))
+    curve = (hifi / "loss_curve.csv").read_text().splitlines()
+    its = [int(l.split(",")[0]) for l in curve[1:]]
+    losses = [l for r in (r1, r2, r3) for l in r["losses"]]
+    if not (frozen and its == list(range(2, last + 1, 2))
+            and r2["start_iteration"] == AT_GAN_ITERS
+            and r3["iterations"] == last
+            and np.isfinite(losses).all()
+            and [l[0] for l in r3["losses"]] == [0.0]
+            and (hifi / f"g_{last:08d}").is_file()):
+        raise AssertionError(f"hifigan CLI: frozen {frozen}, iterations "
+                             f"{its}, losses {losses}")
+    # D and G step times at B=16 from the trained state and a sampled batch
+    template = TTH.GanState(g0, d0, tx0.init(g0), tx0.init(d0))
+    st, _ = TTH.restore_gan_state(str(hifi / f"state_{last:08d}"), template,
+                                  dev)
+    ds = TTH.SegmentSampler(sorted(str(p) for p in (data / "wav").glob(
+        "*.wav")), str(gta), seed=1)
+    mel_np, audio_np = ds.sample_batch(16)
+    mel_t = torch.from_numpy(mel_np).to(dev)
+    audio_t = torch.from_numpy(audio_np).to(dev)
+    tx_g = TTH.make_optimizer(2e-4, 0.999, r1["decay_every"])
+    tx_d = TTH.make_optimizer(2e-4, 0.999, r1["decay_every"])
+    full_s = _timed(lambda: TTH.gan_step(st, mel_t, audio_t, h, tx_g, tx_d))
+    with torch.no_grad():
+        y_hat = HG.generator_apply(st.gen, h, mel_t)
+    d_s = _timed(lambda: TTH.discriminator_update(
+        st.disc, st.opt_d, audio_t[:, None, :], y_hat, tx_d))
+    del y_hat
+    # one f32 step at B=2, card vs CPU, the same state and batch: the
+    # losses, the gradients both optimizers are handed (leaf by leaf,
+    # against the leaf's largest CPU gradient) and the params after it
+    cpu = torch.device("cpu")
+    st_cpu = TTH.GanState(*(to_device(x, cpu) for x in st))
+    grads = {"card": [], "cpu": []}
+
+    def recording(tx, store):
+        def update(g, state, params=None):
+            store.append(g)
+            return tx.update(g, state, params)
+        return TT.Optimizer(tx.init, update)
+    new_c, m_c = TTH.gan_step(
+        st_cpu, mel_t[:2].cpu(), audio_t[:2].cpu(), h,
+        recording(tx_g, grads["cpu"]), recording(tx_d, grads["cpu"]))
+    new_d, m_d = TTH.gan_step(
+        st, mel_t[:2], audio_t[:2], h, recording(tx_g, grads["card"]),
+        recording(tx_d, grads["card"]))
+    loss_err = max(abs(m_d[k].item() - m_c[k].item())
+                   / max(abs(m_c[k].item()), 1e-12) for k in m_c)
+    # per step (D, G): the largest element error of a leaf over the leaf's
+    # largest gradient, and the leaf's error norm over its gradient norm
+    grad_err = {}
+    for step, a_tree, b_tree in zip("dg", grads["card"], grads["cpu"]):
+        pairs = [(a.cpu(), b) for a, b in zip(tree_leaves(a_tree),
+                                              tree_leaves(b_tree))]
+        grad_err[step] = {
+            "max_rel": max((a - b).abs().max().item()
+                           / max(b.abs().max().item(), 1e-30)
+                           for a, b in pairs),
+            "norm_rel": max((a - b).norm().item() / max(b.norm().item(),
+                                                        1e-30)
+                            for a, b in pairs)}
+    p_max = max((a.cpu() - b).abs().max().item() for a, b in zip(
+        tree_leaves((new_d.gen, new_d.disc)),
+        tree_leaves((new_c.gen, new_c.disc))))
+    if not (loss_err <= 1e-4 and p_max <= GAN_PARAM_ATOL and all(
+            e["max_rel"] <= GAN_GRAD_RTOL
+            and e["norm_rel"] <= GAN_GRAD_NORM_RTOL
+            for e in grad_err.values())):
+        raise AssertionError(f"gan step card vs CPU: losses {loss_err}, "
+                             f"gradients {grad_err} of their scale, "
+                             f"params {p_max}")
+    report["gan"] = {
+        "B": 16, "segment": TTH.SEGMENT, "clips": r1["clips"],
+        "cli_s_per_it_windows": r1["s_per_it"] + r2["s_per_it"],
+        "cli_s_per_it": float(np.mean(r1["s_per_it"][1:] + r2["s_per_it"])),
+        "mel_only_s_per_it": r3["s_per_it"], "step_s": full_s,
+        "d_step_s": d_s,
+        "g_step_s": full_s - d_s, "peak_mem_bytes": peak,
+        "losses": losses, "f32_b2_card_vs_cpu": {
+            "loss_rel": loss_err, "grad_err": grad_err,
+            "param_max_abs": p_max}}
+    print("after-training gan", json.dumps(report["gan"]))
+    del st, st_cpu, new_c, new_d, mel_t, audio_t
+
+    # 4. inference with the port-trained generator, then remove_silence
+    g_file = str(hifi / f"g_{last:08d}")
+    cpath = str(root / "config_v1.json")
+    write_hifigan_config(cpath, h)
+    script = root / "script.txt"
+    script.write_text(CLI_SCRIPT, encoding="utf-8")
+    if importlib.util.find_spec("matplotlib") is None:
+        TI.save_plots = lambda *args: None
+    lex = os.path.join(res, "small.lex")
+    Q.launches = 0
+    t0 = time.perf_counter()
+    n_inf = TI.main(["--script", str(script), "--checkpoint-dir", str(ck),
+                     "--out-dir", str(root / "infer"), "--g2p-lexicon", lex,
+                     "--max-decoder-steps", str(AT_STEPS), "--hparams",
+                     "[decode_quant:int8-gate_threshold:1.1]",
+                     "--hifigan-checkpoint", g_file, "--hifigan-config",
+                     cpath, "--device", str(dev), "--overwrite"])
+    torch.cuda.synchronize()
+    infer_wall = time.perf_counter() - t0
+    k1_infer = Q.launches
+    if n_inf != 4 or k1_infer != 2 * 4 * AT_STEPS:
+        raise AssertionError(f"inference: {n_inf} lines, K1 {k1_infer}")
+    bench = root / "bench"
+    if TRS.main(["--in-dir", str(root / "infer" / "audio"), "--out-dir",
+                 str(bench)]) != 4:
+        raise AssertionError("remove_silence: not 4 wavs")
+    gt.mkdir()
+    for i in range(4):
+        shutil.copy(data / "wav" / f"utt{i}.wav", gt / f"u{i}.wav")
+    for k, (s_syn, s_gt) in enumerate(AT_PAIRS):
+        write_wav16(bench / f"pair{k}.wav", at_tone(rng, s_syn))
+        write_wav16(gt / f"pair{k}.wav", at_tone(rng, s_gt))
+    from scipy.io.wavfile import read
+    kept = {p.name: len(read(str(p))[1]) for p in sorted(bench.glob("*.wav"))}
+    report["infer"] = {"lines": 4, "steps": AT_STEPS, "wall_s": infer_wall,
+                       "k1_launches": k1_infer, "trimmed_samples": kept}
+    print("after-training inference", json.dumps(report["infer"]))
+
+    # 5. evaluation: MCD on the host, soft-DTW through K3
+    t0 = time.perf_counter()
+    mcd = TE.main(["mcd", "--benchmark", str(bench), "--gt-dir", str(gt)])
+    mcd_s = time.perf_counter() - t0
+    seen = []
+    undo = _spy(SD, "softdtw_value", seen)
+    try:
+        SD.fwd_launches = 0
+        t0 = time.perf_counter()
+        sdtw = TE.main(["softdtw", "--benchmark", str(bench), "--gt-dir",
+                        str(gt), "--device", str(dev)])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        k3_eval = SD.fwd_launches
+    finally:
+        undo()
+    n_files = sum(1 for n in kept.values() if n)
+    if k3_eval != n_files or len(seen) != n_files or not np.isfinite(sdtw):
+        raise AssertionError(f"evaluation: K3 {k3_eval} launches for "
+                             f"{n_files} files, mean {sdtw}")
+    shapes = []
+    for (D, *_), v in seen:
+        D = D.contiguous()
+        B, N, M = D.shape
+        pv = SD.softdtw_value_plain(D)
+        if not torch.equal(v, pv):
+            raise AssertionError(f"evaluation K3 {(N, M)}: {v} vs plain {pv}")
+        bound, by = sdtw_bound_ms(B, N, M, 0.0, False)
+        shapes.append({"B": B, "N": N, "M": M, "value": v.item(),
+                       "max_abs_err": (v - pv).abs().max().item(),
+                       "ms": device_ms(lambda: SD.softdtw_value(D), 5),
+                       "plain_ms": device_ms(
+                           lambda: SD.softdtw_value_plain(D), 1),
+                       "bound_ms": bound, "bound_by": by,
+                       "plan": SD.k3_plan(B, N, M)._asdict()})
+        print("after-training k3", json.dumps(shapes[-1]))
+    if not any(r["plan"]["scratch_floats"] and r["N"] >= 512
+               for r in shapes):
+        raise AssertionError("evaluation: no shape took K3's scratch path")
+    k3_ms = sum(r["ms"] for r in shapes)
+    report["evaluation"] = {
+        "files": n_files, "mcd_mean": mcd, "softdtw_mean": sdtw,
+        "mcd_s": mcd_s, "softdtw_s": eval_s,
+        "softdtw_ms_per_file": eval_s * 1e3 / n_files,
+        "k3_share": k3_ms / (eval_s * 1e3), "k3_launches": k3_eval}
+    print("after-training evaluation", json.dumps(report["evaluation"]))
+
+    # 6. the checkpoint sweep, int8 decode, the port-trained vocoder
+    sweep_argv = ["--checkpoint-dir", str(ck), "--script", str(script),
+                  "--gt-dir", str(gt), "--out-csv", str(root / "sweep.csv"),
+                  "--g2p-lexicon", lex, "--hifigan-checkpoint", g_file,
+                  "--hifigan-config", cpath, "--max-decoder-steps",
+                  str(AT_STEPS), "--hparams", AT_INT8, "--device", str(dev)]
+    decodes = []
+    undo = _spy(TM, "infer", decodes)
+    try:
+        Q.launches = 0
+        rows = TBC.main(sweep_argv)
+        k1_sweep = Q.launches
+    finally:
+        undo()
+    steps = sum(out["steps_run"] for _, out in decodes)
+    if len(rows) != 2 or len(decodes) != 2 or k1_sweep != 2 * steps:
+        raise AssertionError(f"sweep: {len(rows)} rows, K1 {k1_sweep} in "
+                             f"{steps} decoder steps")
+    frames = [out["mel_lengths"].tolist() for _, out in decodes]
+    if (min(map(min, frames)) < AT_MIN_FRAMES
+            or any(r["failed"] or r["mcd_mean"] == "" for r in rows)):
+        raise AssertionError(f"sweep: lines of {frames} frames, rows {rows}")
+    if TBC.main(sweep_argv) != []:
+        raise AssertionError("sweep: the second run did not skip every row")
+    report["sweep"] = {
+        "rows": [{k: v for k, v in r.items() if k != "seconds"}
+                 for r in rows],
+        "seconds": [r["seconds"] for r in rows],
+        "mel_lengths": frames,
+        "steps_run": [out["steps_run"] for _, out in decodes],
+        "k1_launches": k1_sweep}
+    print("after-training sweep", json.dumps(report["sweep"]))
+    shutil.rmtree(root, ignore_errors=True)
+    return {"k1": k1_infer + k1_sweep, "k1_infer": k1_infer,
+            "k1_sweep": k1_sweep, "k3": k3_eval, "k3_shapes": shapes}
+
+
 def phase_gate_cost(TM, TI, L, params, bn, cfg, dev, gpu):
     """What the f32 LSTM gates cost on the serving path's non-quantized
     bf16 decode: the prepared LSTM weights in f32 (gates f32, as in JAX)
@@ -1477,7 +1979,11 @@ def main() -> int:
     #    Griffin-Lim, one f32 line on the card against the CPU
     cli_launches = phase_cli(Q, dev, gpu)
 
-    # 7. the kernels line: K1 per decoder step of the served batch (B=4,
+    # 7. the after-training pipeline: GTA -> HiFi-GAN -> inference ->
+    #    remove_silence -> evaluation (K3) -> checkpoint sweep (K1)
+    after = phase_after_training(Q, SD, dev, gpu)
+
+    # 8. the kernels line: K1 per decoder step of the served batch (B=4,
     #    bf16 x): the attention-LSTM call plus the decoder-LSTM call, and the
     #    same at B=128; K2 and K3 at the train step's shape, 8 x 128 x 128
     def k1_step(B):
@@ -1496,7 +2002,11 @@ def main() -> int:
     k1 = {"name": "dequant_int8_matmul", "route": "cuda",
           "source": "tacotron2_subword_tpu_torch/csrc/dequant_int8_matmul.cu",
           "replaces": "tacotron2_subword_tpu/ops/quant.py:74",
-          "launches": launches, "cli_launches": cli_launches,
+          "launches": launches + cli_launches + after["k1"],
+          "launches_by_path": {"serve": launches, "cli": cli_launches,
+                               "after_training_inference": after["k1_infer"],
+                               "checkpoint_sweep": after["k1_sweep"]},
+          "cli_launches": cli_launches,
           "max_abs_err": max(r["max_abs_err"] for r in k1_rows
                              if r["x"] == "bf16"),
           **{k: step4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1505,8 +2015,8 @@ def main() -> int:
           "b128": step128,
           "per": ("decoder step, bf16 x: (S=2,K=1792,N=4096) + "
                   "(S=1,K=4096,N=4096); top level at B=4, b128 at B=128; "
-                  "ms warm L2, cold_ms after a 256 MB flush; launches: the "
-                  "4 served requests, cli_launches: the CLI's 4 lines"),
+                  "ms warm L2, cold_ms after a 256 MB flush; launches: "
+                  "every path's, launches_by_path apart"),
           "decode_loop": [{k: r[k] for k in (
               "B", "k1_us_per_step", "k1_launches_per_step",
               "device_us_per_step", "kernel_launches_per_step")}
@@ -1518,9 +2028,11 @@ def main() -> int:
     no_library = ("no single PyTorch call computes soft-DTW (a wavefront "
                   "recursion over the distance matrix)")
     sdtw = []
-    for name, key, fn, step_launches, real_launches in (
-            ("softdtw_grad", "k2", "t2s_softdtw_grad", k2_launches, real_k2),
-            ("softdtw_fwd", "k3", "t2s_softdtw_fwd", k3_launches, real_k3)):
+    for name, key, fn, step_launches, real_launches, eval_launches in (
+            ("softdtw_grad", "k2", "t2s_softdtw_grad", k2_launches, real_k2,
+             0),
+            ("softdtw_fwd", "k3", "t2s_softdtw_fwd", k3_launches, real_k3,
+             after["k3"])):
         errs = [r[f"{key}_value"] for r in sdtw_rows] + (
             [r[k] for r in sdtw_rows for k in ("k2_E", "k2_global_value",
                                                "k2_global_E") if k in r]
@@ -1531,10 +2043,13 @@ def main() -> int:
             "replaces": ("tacotron2_subword_tpu/ops/softdtw.py:357"
                          if key == "k2" else
                          "tacotron2_subword_tpu/ops/softdtw.py:507"),
-            "launches": step_launches + real_launches,
+            "launches": step_launches + real_launches + eval_launches,
             "launches_by_path": {"train_step": step_launches,
-                                 "train_cli_real_data": real_launches},
-            "max_abs_err": max(errs),
+                                 "train_cli_real_data": real_launches,
+                                 "evaluation": eval_launches},
+            "max_abs_err": max(errs + ([r["max_abs_err"]
+                                        for r in after["k3_shapes"]]
+                                       if key == "k3" else [])),
             "ms": main_row[f"{key}_ms"], "plain_ms": main_row[f"{key}_plain_ms"],
             "bound_ms": main_row[f"{key}_bound_ms"],
             "bound_by": main_row[f"{key}_bound_by"], "library_ms": None,
@@ -1555,6 +2070,12 @@ def main() -> int:
             entry["cli_bucket"] = {k: row_256[f"k3_{k}"] for k in (
                 "ms", "plain_ms", "bound_ms", "us_per_diagonal", "plan",
                 "serial_floor_ms", "cycles_per_diagonal")}
+            entry["evaluation"] = [{k: r[k] for k in (
+                "N", "M", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")} | {"scratch": bool(r["plan"]["scratch_floats"]),
+                                    "warps": r["plan"]["warps"],
+                                    "strips": r["plan"]["strips"]}
+                for r in after["k3_shapes"]]
             entry["small"] = [{k: r[k] for k in (
                 "B", "N", "M", "k3_ms", "k3_plain_ms", "k3_wall_ms",
                 "k3_plain_wall_ms")} for r in sdtw_rows

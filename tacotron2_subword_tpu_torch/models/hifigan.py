@@ -1,14 +1,19 @@
-"""HiFi-GAN generator (inference) in PyTorch.
+"""HiFi-GAN in PyTorch: the generator, the discriminators and the GAN losses.
 
-Counterpart of the generator half of
-``tacotron2_subword_tpu/models/hifigan.py``: conv_pre (80 -> C, k7), then per
-upsampling stage leaky_relu -> ConvTranspose1d -> the average of the
-multi-receptive-field resblocks, then leaky_relu -> conv_post -> tanh.
-Parameters carry weight-norm {v, g, b} as trained; ``fuse_generator``
-collapses them for serving.  ``HifiganConfig.from_json`` reads the
-reference's config JSON and ``import_torch_generator`` its
-``{'generator': state_dict}`` checkpoints.  The convolutions are torch's F.conv1d /
-F.conv_transpose1d, as the JAX package leaves them to XLA's convolutions.
+Counterpart of ``tacotron2_subword_tpu/models/hifigan.py``.  Generator:
+conv_pre (80 -> C, k7), then per upsampling stage leaky_relu ->
+ConvTranspose1d -> the average of the multi-receptive-field resblocks, then
+leaky_relu -> conv_post -> tanh.  Discriminators (training): the
+multi-period one (periods 2, 3, 5, 7, 11; the waveform reflect-padded to a
+multiple of the period and folded to [B, 1, T/p, p]) and the multi-scale
+one (three scales, 4/2 average pooling between them), with the LSGAN and
+feature-matching losses.  Parameters carry weight-norm {v, g, b} as
+trained (norm over every dim but 0); ``fuse_generator`` collapses them for
+serving.  ``HifiganConfig.from_json`` reads the reference's config JSON,
+``import_torch_generator`` its ``{'generator': state_dict}`` checkpoints
+and ``export_torch_generator`` writes one.  The convolutions are torch's
+F.conv1d / F.conv2d / F.conv_transpose1d, as the JAX package leaves them to
+XLA's convolutions.
 """
 
 from __future__ import annotations
@@ -200,3 +205,150 @@ def import_torch_generator(sd, h: HifiganConfig, device="cuda"):
             {name: [grab(f"resblocks.{i}.{name}.{j}") for j in range(nd)]
              for name in names})
     return params
+
+
+def export_torch_generator(params):
+    """The inverse of ``import_torch_generator``: a generator tree as the
+    reference's state dict (the tree's path is the module name; v / g / w /
+    b become weight_v / weight_g / weight / bias), contiguous CPU tensors,
+    for ``torch.save({'generator': ...})``."""
+    names = {"v": "weight_v", "g": "weight_g", "w": "weight", "b": "bias"}
+    sd = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, prefix + names[k] if k in names else f"{prefix}{k}.")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}{i}.")
+        else:
+            sd[prefix] = tree.detach().cpu().contiguous()
+    walk(params, "")
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Discriminators and GAN losses (training; reference hifigan_model.py:127-281)
+# ---------------------------------------------------------------------------
+
+PERIODS = (2, 3, 5, 7, 11)
+# (in, out) channels of the period discriminator's (5, 1) convolutions
+PERIOD_DISC_CHANNELS = ((1, 32), (32, 128), (128, 512), (512, 1024),
+                        (1024, 1024))
+# (in_ch, out_ch, kernel, stride, groups, padding) per layer of the scale
+# discriminator (reference hifigan_model.py:194-203)
+SCALE_DISC_SPEC = ((1, 128, 15, 1, 1, 7), (128, 128, 41, 2, 4, 20),
+                   (128, 256, 41, 2, 16, 20), (256, 512, 41, 4, 16, 20),
+                   (512, 1024, 41, 4, 16, 20), (1024, 1024, 41, 1, 16, 20),
+                   (1024, 1024, 5, 1, 1, 2))
+
+
+def _wn_init(gen, shape):
+    p = L.weight_norm_init(gen, shape)
+    p["b"] = torch.zeros(shape[0])
+    return p
+
+
+def init_discriminators(generator: torch.Generator, device="cuda"):
+    """Random weight-normed MPD + MSD params (v ~ N(0, 0.01)), drawn from
+    a CPU generator and moved to ``device``: {"mpd": 5 period
+    discriminators {convs [5], conv_post}, "msd": 3 scale discriminators
+    {convs [7], conv_post}}."""
+    device = resolve_device(device)
+    mpd = [{"convs": [_wn_init(generator, (cout, cin, 5, 1))
+                      for cin, cout in PERIOD_DISC_CHANNELS],
+            "conv_post": _wn_init(generator, (1, 1024, 3, 1))}
+           for _ in PERIODS]
+    msd = [{"convs": [_wn_init(generator, (cout, cin // g, k))
+                      for cin, cout, k, _, g, _ in SCALE_DISC_SPEC],
+            "conv_post": _wn_init(generator, (1, 1024, 3))}
+           for _ in range(3)]
+    return to_device({"mpd": mpd, "msd": msd}, device)
+
+
+def period_discriminator_apply(p, x: torch.Tensor, period: int):
+    """x [B, 1, T] -> (logits [B, n], feature maps of the 6 layers)."""
+    B, C, T = x.shape
+    if T % period:
+        x = F.pad(x, (0, period - T % period), mode="reflect")
+    x = x.reshape(B, C, x.shape[-1] // period, period)
+    fmap = []
+    for i, conv in enumerate(p["convs"]):
+        x = L.conv2d_apply(_fused(conv), x, stride=(3, 1) if i < 4 else (1, 1),
+                           padding=(2, 0))
+        x = F.leaky_relu(x, LRELU_SLOPE)
+        fmap.append(x)
+    x = L.conv2d_apply(_fused(p["conv_post"]), x, padding=(1, 0))
+    fmap.append(x)
+    return x.reshape(B, -1), fmap
+
+
+def scale_discriminator_apply(p, x: torch.Tensor):
+    """x [B, 1, T] -> (logits [B, n], feature maps of the 8 layers)."""
+    fmap = []
+    for c, (_, _, _, stride, groups, pad) in zip(p["convs"],
+                                                 SCALE_DISC_SPEC):
+        x = L.conv1d_apply(_fused(c), x, padding=pad, stride=stride,
+                           groups=groups)
+        x = F.leaky_relu(x, LRELU_SLOPE)
+        fmap.append(x)
+    x = L.conv1d_apply(_fused(p["conv_post"]), x, padding=1)
+    fmap.append(x)
+    return x.reshape(x.shape[0], -1), fmap
+
+
+def _avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Window 4, stride 2, zero padding 2 counted in the mean (the JAX
+    package's reduce_window sum / 4)."""
+    return F.avg_pool1d(x, 4, 2, padding=2, count_include_pad=True)
+
+
+def discriminate(params, x: torch.Tensor):
+    """One waveform batch x [B, 1, T] through MPD then MSD: (logits,
+    feature maps), one entry per discriminator (8)."""
+    outs, fmaps = [], []
+    for p, period in zip(params["mpd"], PERIODS):
+        o, f = period_discriminator_apply(p, x, period)
+        outs.append(o)
+        fmaps.append(f)
+    for i, p in enumerate(params["msd"]):
+        if i:
+            x = _avg_pool(x)
+        o, f = scale_discriminator_apply(p, x)
+        outs.append(o)
+        fmaps.append(f)
+    return outs, fmaps
+
+
+def discriminators_apply(params, y: torch.Tensor, y_hat: torch.Tensor):
+    """(real_logits, gen_logits, real_fmaps, gen_fmaps) across MPD + MSD
+    (reference hifigan_model.py:174-247)."""
+    rs, fr = discriminate(params, y)
+    gs, fg = discriminate(params, y_hat)
+    return rs, gs, fr, fg
+
+
+def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
+    """2 x the sum over every feature map of mean |real - generated|."""
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(rl - gl))
+    return loss * 2
+
+
+def discriminator_loss(real_outs, gen_outs) -> torch.Tensor:
+    """LSGAN: sum over discriminators of mean (1 - D(y))^2 + mean D(y_hat)^2."""
+    loss = 0.0
+    for dr, dg in zip(real_outs, gen_outs):
+        loss = loss + torch.mean((1 - dr) ** 2) + torch.mean(dg ** 2)
+    return loss
+
+
+def generator_adv_loss(gen_outs) -> torch.Tensor:
+    """LSGAN: sum over discriminators of mean (1 - D(y_hat))^2."""
+    loss = 0.0
+    for dg in gen_outs:
+        loss = loss + torch.mean((1 - dg) ** 2)
+    return loss

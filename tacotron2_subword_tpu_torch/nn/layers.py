@@ -102,12 +102,21 @@ def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv1d_apply(p, x: torch.Tensor, padding: Optional[int] = None,
-                 dilation: int = 1) -> torch.Tensor:
-    """x [B, C_in, T] -> [B, C_out, T'] ("same" padding by default)."""
+                 dilation: int = 1, stride: int = 1,
+                 groups: int = 1) -> torch.Tensor:
+    """x [B, C_in, T] -> [B, C_out, T'] ("same" padding by default); ``w``
+    is [C_out, C_in / groups, k]."""
     w = p["w"]
     if padding is None:
         padding = dilation * (w.shape[-1] - 1) // 2
-    return F.conv1d(x, w, p.get("b"), padding=padding, dilation=dilation)
+    return F.conv1d(x, w, p.get("b"), stride=stride, padding=padding,
+                    dilation=dilation, groups=groups)
+
+
+def conv2d_apply(p, x: torch.Tensor, stride=(1, 1),
+                 padding=(0, 0)) -> torch.Tensor:
+    """x [B, C_in, H, W] -> [B, C_out, H', W'] (NCHW, OIHW ``w``)."""
+    return F.conv2d(x, p["w"], p.get("b"), stride=stride, padding=padding)
 
 
 def conv_transpose1d_apply(p, x: torch.Tensor, stride: int,

@@ -22,7 +22,9 @@ INF is the finite sentinel 1e30, so only f32 is taken.
  - ``softdtw_diff`` is differentiable: where D needs a gradient its forward
    runs K2 and keeps E for the backward, otherwise it runs K3;
  - ``softdtw`` is the plain implementation as a differentiable op (the JAX
-   package's scan ``softdtw``), chosen with ``softdtw_impl="scan"``.
+   package's scan ``softdtw``), chosen with ``softdtw_impl="scan"``;
+ - ``softdtw_distance`` (sequences -> value, as ``apps/evaluation.py``
+   calls it) takes the kernels through ``softdtw_diff``.
 
 A CPU tensor takes the kernels' plain versions (``softdtw_grad_plain``,
 ``softdtw_value_plain``); a CUDA tensor launches the kernel or raises.
@@ -400,13 +402,15 @@ def softdtw(D: torch.Tensor, gamma: float = 1.0,
 def softdtw_distance(x: torch.Tensor, y: torch.Tensor, *, gamma: float = 1.0,
                      bandwidth: float = 0.0,
                      normalize: bool = False) -> torch.Tensor:
-    """Soft-DTW between batched sequences x [B,N,D] and y [B,M,D]; with
+    """Soft-DTW between batched sequences x [B,N,D] and y [B,M,D] through
+    the kernels (``softdtw_diff``: K3 without a gradient, K2 with one); with
     ``normalize`` the divergence d(x,y) - (d(x,x) + d(y,y)) / 2."""
-    d_xy = softdtw(euclidean_dist_matrix(x, y), gamma, bandwidth)
+    dist = lambda a, b: euclidean_dist_matrix(a, b).contiguous()
+    d_xy = softdtw_diff(dist(x, y), gamma, bandwidth)
     if not normalize:
         return d_xy
-    d_xx = softdtw(euclidean_dist_matrix(x, x), gamma, bandwidth)
-    d_yy = softdtw(euclidean_dist_matrix(y, y), gamma, bandwidth)
+    d_xx = softdtw_diff(dist(x, x), gamma, bandwidth)
+    d_yy = softdtw_diff(dist(y, y), gamma, bandwidth)
     return d_xy - 0.5 * (d_xx + d_yy)
 
 

@@ -31,8 +31,9 @@ def _window_on(window_size: int, sigma: float, channels: int,
     """The window as a depthwise conv weight [C, 1, W, W] on ``device``,
     made once per (size, sigma, channels, device)."""
     w = torch.from_numpy(_gaussian_window(window_size, sigma))
-    return w.expand(channels, 1, window_size, window_size).contiguous().to(
-        device)
+    with torch.inference_mode(False):   # usable by autograd, as ops/stft's
+        return w.expand(channels, 1, window_size,
+                        window_size).contiguous().to(device)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,

@@ -16,7 +16,10 @@ audio_processing.py:7-56).
 
 The constants (bases, filterbanks, window envelopes) are computed once in
 numpy and cached, and their device copies are cached per (shape, device),
-so no constant is copied from the host inside Griffin-Lim's loop.
+so no constant is copied from the host inside Griffin-Lim's loop.  The
+device copies are made outside inference mode, whoever asks first: a copy
+made under ``torch.inference_mode`` (the GTA dump, the checkpoint sweep)
+could not take part in a later autograd graph (HiFi-GAN's mel loss).
 """
 
 from __future__ import annotations
@@ -153,14 +156,17 @@ def mel_filterbank(sampling_rate: int, n_fft: int, n_mels: int,
 def _bases_on(filter_length: int, hop_length: int, win_length: int,
               device: torch.device):
     fwd, inv = stft_bases(filter_length, hop_length, win_length)
-    return (torch.from_numpy(fwd).to(device), torch.from_numpy(inv).to(device))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(fwd).to(device),
+                torch.from_numpy(inv).to(device))
 
 
 @functools.lru_cache(maxsize=64)
 def _mel_basis_on(sampling_rate: int, n_fft: int, n_mels: int, fmin: float,
                   fmax: float, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(mel_filterbank(sampling_rate, n_fft, n_mels,
-                                           fmin, fmax)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(mel_filterbank(sampling_rate, n_fft, n_mels,
+                                               fmin, fmax)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -168,7 +174,8 @@ def _inv_mel_basis_on(sampling_rate: int, n_fft: int, n_mels: int,
                       fmin: float, fmax: float,
                       device: torch.device) -> torch.Tensor:
     fb = mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax)
-    return torch.from_numpy(np.linalg.pinv(fb)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.linalg.pinv(fb)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -178,7 +185,8 @@ def _wss_correction_on(n_frames: int, filter_length: int, hop_length: int,
     wss = window_sumsquare(n_frames, filter_length, hop_length, win_length)
     tiny = np.finfo(np.float32).tiny
     corr = np.where(wss > tiny, 1.0 / np.maximum(wss, tiny), 1.0)
-    return torch.from_numpy(corr.astype(np.float32)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(corr.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ non-finite gradient norm skips the update of params and optimizer state
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -166,19 +166,42 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tree_leaves(tree)))
 
 
+def adam(b1: float, b2: float, eps: float,
+         lr_at: Callable[[torch.Tensor], Any]) -> Optimizer:
+    """Adam with bias correction over tensors (optax's ``scale_by_adam``
+    then the step): the update is -lr_at(count) * m_hat / (sqrt(v_hat) +
+    eps), ``count`` being the updates taken before this one.  ``lr_at``
+    returns a float or a 0-dim tensor."""
+    def init(params):
+        z = lambda p: torch.zeros_like(p)
+        dev = tree_leaves(params)[0].device
+        return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
+                         tree_map(z, params), tree_map(z, params))
+
+    def update(grads, state: AdamState, params=None):
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
+                      state.nu)
+        count = state.count + 1
+        n = count.to(torch.float32)
+        bc1 = 1 - torch.tensor(b1, device=n.device) ** n
+        bc2 = 1 - torch.tensor(b2, device=n.device) ** n
+        neg_lr = -lr_at(state.count)
+        upd = tree_map(lambda m, v: neg_lr * ((m / bc1)
+                                              / (torch.sqrt(v / bc2) + eps)),
+                       mu, nu)
+        return upd, AdamState(count, mu, nu)
+
+    return Optimizer(init, update)
+
+
 def make_optimizer(cfg: TacotronConfig, learning_rate=None) -> Optimizer:
     """The JAX package's chain, in its order: g + weight_decay * p; clip
     to global norm ``grad_clip_thresh``; Adam (b1 0.9, b2 0.999, eps 1e-8,
     bias-corrected); times -lr."""
     lr = cfg.learning_rate if learning_rate is None else learning_rate
     wd, max_norm = cfg.weight_decay, cfg.grad_clip_thresh
-    b1, b2, eps = 0.9, 0.999, 1e-8
-
-    def init(params):
-        z = lambda p: torch.zeros_like(p)
-        dev = tree_leaves(params)[0].device
-        return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
-                         tree_map(z, params), tree_map(z, params))
+    core = adam(0.9, 0.999, 1e-8, lambda count: lr)
 
     def update(grads, state: AdamState, params):
         g = tree_map(lambda g, p: g + wd * p, grads, params)
@@ -186,18 +209,9 @@ def make_optimizer(cfg: TacotronConfig, learning_rate=None) -> Optimizer:
         trigger = g_norm < max_norm
         g = tree_map(lambda t: torch.where(trigger, t, (t / g_norm) * max_norm),
                      g)
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, g, state.mu)
-        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, g, state.nu)
-        count = state.count + 1
-        n = count.to(torch.float32)
-        bc1 = 1 - torch.tensor(b1, device=n.device) ** n
-        bc2 = 1 - torch.tensor(b2, device=n.device) ** n
-        upd = tree_map(lambda m, v: -lr * ((m / bc1)
-                                           / (torch.sqrt(v / bc2) + eps)),
-                       mu, nu)
-        return upd, AdamState(count, mu, nu)
+        return core.update(g, state)
 
-    return Optimizer(init, update)
+    return Optimizer(core.init, update)
 
 
 class TrainState(NamedTuple):

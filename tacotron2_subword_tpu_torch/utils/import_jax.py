@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from tacotron2_subword_tpu_torch.config import TacotronConfig
-from tacotron2_subword_tpu_torch.models.hifigan import HifiganConfig
+from tacotron2_subword_tpu_torch.models.hifigan import (
+    PERIOD_DISC_CHANNELS, PERIODS, SCALE_DISC_SPEC, HifiganConfig)
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 from tacotron2_subword_tpu_torch.utils.tree import tree_map
 
@@ -109,3 +110,45 @@ def hifigan_params_from_numpy(params, h: HifiganConfig, device="cuda"):
     if len(p["resblocks"]) != n_rb:
         raise ValueError(f"resblocks: {len(p['resblocks'])}, expected {n_rb}")
     return p
+
+
+def hifigan_discriminators_from_numpy(params, device="cuda"):
+    """MPD + MSD params of the JAX package (``init_discriminators``'
+    tree), as a numpy tree -> the port's tree on ``device``, every
+    weight-norm ``v`` and ``g`` checked against the layer it feeds."""
+    device = resolve_device(device)
+    p = _tensors(params, device)
+    if len(p["mpd"]) != len(PERIODS) or len(p["msd"]) != 3:
+        raise ValueError(f"{len(p['mpd'])} period / {len(p['msd'])} scale "
+                         f"discriminators, expected {len(PERIODS)} / 3")
+
+    def wn(name, q, shape):
+        _expect(f"{name}.v", q["v"], shape)
+        _expect(f"{name}.g", q["g"], (shape[0],) + (1,) * (len(shape) - 1))
+        _expect(f"{name}.b", q["b"], shape[:1])
+
+    for n, d in enumerate(p["mpd"]):
+        for i, (cin, cout) in enumerate(PERIOD_DISC_CHANNELS):
+            wn(f"mpd.{n}.convs.{i}", d["convs"][i], (cout, cin, 5, 1))
+        wn(f"mpd.{n}.conv_post", d["conv_post"], (1, 1024, 3, 1))
+    for n, d in enumerate(p["msd"]):
+        for i, (cin, cout, k, _, g, _) in enumerate(SCALE_DISC_SPEC):
+            wn(f"msd.{n}.convs.{i}", d["convs"][i], (cout, cin // g, k))
+        wn(f"msd.{n}.conv_post", d["conv_post"], (1, 1024, 3))
+    return p
+
+
+def optax_adam_state_from_numpy(opt_state, params, device="cuda"):
+    """The state of ``optax.adam(lr_or_schedule, ...)`` as a numpy tree:
+    (ScaleByAdamState(count, mu, nu), EmptyState() or
+    ScaleByScheduleState(count)) -> the port's ``train_lib.AdamState``
+    (each moment checked against ``params``).  The port's schedule reads
+    Adam's count: optax's two counters move together, and a state where
+    they differ raises."""
+    adam, sched = opt_state
+    if "count" in getattr(sched, "_fields", ()) and int(
+            np.asarray(sched.count)) != int(np.asarray(adam.count)):
+        raise ValueError(f"schedule count {int(np.asarray(sched.count))} "
+                         f"!= Adam count {int(np.asarray(adam.count))}")
+    return adam_state_from_numpy(adam.count, adam.mu, adam.nu, params,
+                                 device=device)

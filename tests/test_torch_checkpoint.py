@@ -214,24 +214,10 @@ def test_other_attention_variants_raise():
 
 
 def hifigan_state_dict(params):
-    """A HiFi-GAN param tree as the reference's generator state dict: the
-    tree's path is the module name; v / g / w / b are weight_v / weight_g /
-    weight / bias."""
-    names = {"v": "weight_v", "g": "weight_g", "w": "weight", "b": "bias"}
-    sd = {}
-
-    def walk(tree, prefix):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                walk(v, f"{prefix}{names[k]}" if k in names
-                     else f"{prefix}{k}.")
-        elif isinstance(tree, (list, tuple)):
-            for i, v in enumerate(tree):
-                walk(v, f"{prefix}{i}.")
-        else:
-            sd[prefix] = torch.from_numpy(np.array(tree))
-    walk(params, "")
-    return sd
+    """A HiFi-GAN param tree of JAX or numpy arrays as the reference's
+    generator state dict (the port's ``export_torch_generator``)."""
+    return THG.export_torch_generator(jax.tree_util.tree_map(
+        lambda a: torch.from_numpy(np.array(a)), params))
 
 
 @pytest.mark.parametrize("resblock", ["1", "2"])

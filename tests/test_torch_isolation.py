@@ -28,7 +28,9 @@ def test_port_has_the_slice_modules():
                  "text", "text.lexicon", "text.fst_g2p", "text.g2p",
                  "text.text_to_sequence", "text.bert", "ops.stft",
                  "models.denoiser", "utils.import_torch", "utils.checkpoint",
-                 "utils.logging_utils", "ops.ssim"):
+                 "utils.logging_utils", "ops.ssim", "eval", "eval.metrics",
+                 "apps.gta", "apps.train_hifigan", "apps.best_checkpoint",
+                 "apps.evaluation", "apps.remove_silence", "utils.audio"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
     # the G2P engine is built from the port's own copy of the C++ source
     assert (ROOT / "tacotron2_subword_tpu_torch" / "native"
