@@ -38,7 +38,12 @@ the port at full width:
    --mel-only, D / G step times, one f32 step card vs CPU), the inference
    CLI with that generator, remove_silence, the MCD / soft-DTW evaluation
    (K3 once per file, up to 19 s wavs, held to its plain version) and the
-   int8 checkpoint sweep (K1 counted).
+   int8 checkpoint sweep (K1 counted);
+ - the five attention variants other than SMA
+   (``phase_attention_variants``): each served (K1 counted), profiled,
+   decoded in f32 and differentiated in f32 on the card against the CPU,
+   and trained one soft-DTW step (K2, K3 counted); one inference CLI line
+   from a DCA checkpoint.
 
 ``python3 chip_smoke.py --k1-splits`` builds the kernels and times K1 at
 every number of K splits instead (the table behind ``ops/quant.k1_plan``).
@@ -526,64 +531,74 @@ def phase_serve(Q, TM, TI, params, bn, gen_params, cfg, h, dev, gpu):
 PROFILE_STEPS = 32
 
 
-def phase_profile(TM, TI, params, bn, cfg, dev):
-    """Where a decode step's time goes (torch.profiler, CUDA activity): the
-    decoder loop alone at B=4 and B=128, its wall time per step, the
-    device-busy share of that wall time, K1's device time and launches per
-    step, and the kernels with the most device time.  Fails if a split-K
-    reduce kernel ran (K1 is one launch per call)."""
+def profile_decode(TM, TI, params, bn, cfg, dev, lengths):
+    """The decoder loop alone (PROFILE_STEPS steps, the encoders run
+    before) under torch.profiler with CUDA activity: (its row of wall and
+    device us per step, device-busy share, kernel launches per step, K1's
+    us and launches per step and the kernels with the most device time;
+    the CUDA kernels' key averages)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    text, sub, cls_p, cls_s, t_len, s_len = TI.pad_requests(
+        make_requests(cfg, lengths, seed=7), dev)
+    dtype = TM._compute_dtype(cfg)
+    with torch.inference_mode():
+        mem, _ = TM._encode_stream(params["encoder"], bn["encoder"],
+                                   params["embedding"], text, t_len,
+                                   cls_p, params["linear_converter"],
+                                   dtype)
+        mem_b, _ = TM._encode_stream(
+            params["encoder_sub"], bn["encoder_sub"],
+            params["embedding_sub"], sub, s_len, cls_s,
+            params["linear_converter_sub"], dtype)
+
+    def run():
+        with torch.inference_mode():
+            TM.decoder_infer(
+                params["decoder"], cfg, mem, mem_b, max_steps=PROFILE_STEPS,
+                gate_threshold=1.1, text_lengths=t_len,
+                sub_lengths=s_len,
+                generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    k1 = [e for e in kern if "dequant_int8_matmul" in e.key]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    row = {
+        "B": len(lengths), "steps": PROFILE_STEPS,
+        "wall_us_per_step": wall / PROFILE_STEPS * 1e6,
+        "device_us_per_step": dev_us / PROFILE_STEPS,
+        "device_busy_share": dev_us / (wall * 1e6),
+        "kernel_launches_per_step": sum(e.count for e in kern) / PROFILE_STEPS,
+        "k1_us_per_step": sum(e.self_device_time_total for e in k1)
+        / PROFILE_STEPS,
+        "k1_launches_per_step": sum(e.count for e in k1) / PROFILE_STEPS,
+        "top_kernels_us_per_step": [
+            [e.key[:70], e.self_device_time_total / PROFILE_STEPS] for e in top],
+    }
+    return row, kern
+
+
+def phase_profile(TM, TI, params, bn, cfg, dev):
+    """Where a decode step's time goes (``profile_decode``): the decoder
+    loop alone at B=4 and B=128, its wall time per step, the device-busy
+    share of that wall time, K1's device time and launches per step, and
+    the kernels with the most device time.  Fails if a split-K reduce
+    kernel ran (K1 is one launch per call)."""
     rows = []
     for lengths in (REQUESTS, [(64, 32)] * 128):
-        text, sub, cls_p, cls_s, t_len, s_len = TI.pad_requests(
-            make_requests(cfg, lengths, seed=7), dev)
-        dtype = TM._compute_dtype(cfg)
-        with torch.inference_mode():
-            mem, _ = TM._encode_stream(params["encoder"], bn["encoder"],
-                                       params["embedding"], text, t_len,
-                                       cls_p, params["linear_converter"],
-                                       dtype)
-            mem_b, _ = TM._encode_stream(
-                params["encoder_sub"], bn["encoder_sub"],
-                params["embedding_sub"], sub, s_len, cls_s,
-                params["linear_converter_sub"], dtype)
-
-        def run():
-            with torch.inference_mode():
-                TM.decoder_infer(
-                    params["decoder"], cfg, mem, mem_b, max_steps=PROFILE_STEPS,
-                    gate_threshold=1.1, text_lengths=t_len,
-                    sub_lengths=s_len,
-                    generator=torch.Generator(device=dev).manual_seed(0))
-            torch.cuda.synchronize()
-        run()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            wall = time.perf_counter() - t0
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        row, kern = profile_decode(TM, TI, params, bn, cfg, dev, lengths)
         if any("splitk_reduce" in e.key for e in kern):
             raise AssertionError("profile: a split-K reduce kernel ran; K1 "
                                  "must be one launch per call")
-        k1 = [e for e in kern if "dequant_int8_matmul" in e.key]
-        dev_us = sum(e.self_device_time_total for e in kern)
-        top = sorted(kern, key=lambda e: e.self_device_time_total,
-                     reverse=True)[:6]
-        row = {
-            "B": len(lengths), "steps": PROFILE_STEPS,
-            "wall_us_per_step": wall / PROFILE_STEPS * 1e6,
-            "device_us_per_step": dev_us / PROFILE_STEPS,
-            "device_busy_share": dev_us / (wall * 1e6),
-            "kernel_launches_per_step": sum(e.count for e in kern) / PROFILE_STEPS,
-            "k1_us_per_step": sum(e.self_device_time_total for e in k1)
-            / PROFILE_STEPS,
-            "k1_launches_per_step": sum(e.count for e in k1) / PROFILE_STEPS,
-            "top_kernels_us_per_step": [
-                [e.key[:70], e.self_device_time_total / PROFILE_STEPS] for e in top],
-        }
         rows.append(row)
         print("profile", json.dumps(row))
     return rows
@@ -1167,13 +1182,13 @@ def write_hifigan_config(path, h):
                    "sampling_rate": h.sampling_rate}, f)
 
 
-def cli_assets(root):
+def cli_assets(root, cfg=None, script_text=CLI_SCRIPT):
     """The CLI's inputs under ``root``: the resources, a full-width
-    acoustic model with random weights (seed 0) saved by the port's
-    save_checkpoint, a HiFi-GAN v1 generator (``unit_norm_generator``, seed
-    1) as a reference-format {'generator': state_dict} file written by
-    ``HG.export_torch_generator``, with its JSON config, and the 4-line
-    script."""
+    acoustic model of ``cfg`` (the default config when None) with random
+    weights (seed 0) saved by the port's save_checkpoint, a HiFi-GAN v1
+    generator (``unit_norm_generator``, seed 1) as a reference-format
+    {'generator': state_dict} file written by ``HG.export_torch_generator``,
+    with its JSON config, and the script (4 lines by default)."""
     import os
     from tacotron2_subword_tpu_torch import train_lib as TT
     from tacotron2_subword_tpu_torch.config import TacotronConfig
@@ -1181,7 +1196,8 @@ def cli_assets(root):
     from tacotron2_subword_tpu_torch.utils import checkpoint as CK
     res = write_resources(root)
     gen = torch.Generator().manual_seed(0)
-    state, _ = TT.create_train_state(gen, TacotronConfig(), device="cpu")
+    state, _ = TT.create_train_state(gen, cfg or TacotronConfig(),
+                                     device="cpu")
     ckpt = CK.save_checkpoint(state._replace(step=1), os.path.join(root, "ck"))
     h = HG.HifiganConfig()
     gpath = os.path.join(root, "g_00000001")
@@ -1191,7 +1207,7 @@ def cli_assets(root):
     write_hifigan_config(cpath, h)
     script = os.path.join(root, "script.txt")
     with open(script, "w", encoding="utf-8") as f:
-        f.write(CLI_SCRIPT)
+        f.write(script_text)
     return {"res": res, "lexicon": os.path.join(res, "small.lex"),
             "ckpt_dir": os.path.dirname(ckpt), "hifigan": gpath,
             "config": cpath, "script": script}
@@ -1906,6 +1922,255 @@ def phase_gate_cost(TM, TI, L, params, bn, cfg, dev, gpu):
     return rows
 
 
+ATT_VARIANTS = ("LocationSensitiveAttention", "ForwardAttentionV2",
+                "ContentAttention", "DynamicConvolutionAttention",
+                "GMMAttention")
+# the variants whose loop reads no processed memory: their memory layer's
+# gradient is exactly zero, in the JAX package too
+ATT_NO_PROCESSED_MEMORY = ("DynamicConvolutionAttention", "GMMAttention")
+ATT_PARITY_STEPS = 16   # the f32 decode, card against CPU, at B=2
+ATT_DECODE_TOL = 2e-4   # |d| <= tol + tol * |ref|: the inference tests' bound
+# |sum of a bf16 alignment row - 1|: the softmax sums to 1 in f32, then
+# each weight is rounded to bf16 (unit roundoff 2^-8 of itself, so at most
+# 2^-8 of the row); doubled
+ATT_ROW_SUM_TOL = 2.0 ** -7
+ATT_GRAD_RTOL = 1e-3    # f32 gradient, card vs CPU, of a leaf's max |g|
+
+
+def attention_grads(TT, TM, params, bn, cfg, batch, rnd):
+    """(dotted paths, gradients) of the total loss over the leaves of both
+    streams' attention trees; zeros where the loss does not reach."""
+    from tacotron2_subword_tpu_torch.utils.tree import tree_leaves, tree_map
+    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    out, _ = TM.forward(params, bn, cfg, batch, training=True,
+                        randomness=rnd)
+    total = TT.tacotron2_loss(out, batch, cfg, 0)["total"]
+    att = {k: params["decoder"][k] for k in ("attention", "attention_bert")}
+    leaves = tree_leaves(att)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    return _tree_paths(att), [torch.zeros_like(p) if g is None else g
+                              for g, p in zip(grads, leaves)]
+
+
+def phase_attention_variants(Q, SD, dev, gpu):
+    """The five attention variants other than SMA on the main paths at
+    full width (seeded random weights, bf16 compute, f32 master params):
+    for each, the 4 requests of ``phase_serve`` through ``synthesize``
+    (int8 decode, 200 steps, gate 1.1: K1 == 2 x steps; finite mel and
+    alignments, each alignment row summing to 1 within ATT_ROW_SUM_TOL),
+    the decode's wall us per step at B=4 and its profile
+    (``profile_decode``), an f32 decode at B=2 on the card against the CPU
+    (ATT_PARITY_STEPS steps, ATT_DECODE_TOL), one bf16 soft-DTW train step
+    at B=8, T_out=128 and one eval step (K2 == 1, K3 == 1, finite losses;
+    every attention leaf's gradient finite, and non-zero except the memory
+    layer of the variants that read no processed memory), and the f32
+    gradient of every attention leaf at B=2, T_out=16 on the card against
+    the CPU (ATT_GRAD_RTOL of the leaf's max |g|, floored at 1e-3 of the
+    tree's).  Then one line of the inference CLI from a DCA checkpoint
+    written by save_checkpoint, ``--hparams ...-attention:
+    DynamicConvolutionAttention`` (K1 == 2 x steps).  Returns the kernel
+    launches of the counted runs."""
+    import os
+    import importlib.util
+    import shutil
+    from pathlib import Path
+    from scipy.io.wavfile import read
+    from tacotron2_subword_tpu_torch import train_lib as TT
+    from tacotron2_subword_tpu_torch.apps import inference as TI
+    from tacotron2_subword_tpu_torch.config import TacotronConfig
+    from tacotron2_subword_tpu_torch.models import hifigan as HG
+    from tacotron2_subword_tpu_torch.models import tacotron2 as TM
+    from tacotron2_subword_tpu_torch.utils.tree import to_device
+    cpu = torch.device("cpu")
+    h = HG.HifiganConfig()
+    gen_params = HG.fuse_generator(HG.init_generator(
+        torch.Generator().manual_seed(1), h, device=dev))
+    reqs = make_requests(TacotronConfig(), REQUESTS, seed=1)
+    counts = {"k1": 0, "k2": 0, "k3": 0}
+    rows = []
+    for variant in ATT_VARIANTS:
+        t_phase = time.perf_counter()
+        row = {"variant": variant}
+        cfg = TacotronConfig(decode_quant="int8", attention=variant)
+        params_cpu, bn_cpu = TM.init_tacotron2(
+            torch.Generator().manual_seed(0), cfg, device="cpu")
+        params, bn = to_device(params_cpu, dev), to_device(bn_cpu, dev)
+
+        # 1. serving: 4 requests, int8 decode, K1 counted
+        serve = lambda seed, steps: TI.synthesize(
+            params, bn, gen_params, cfg, h, reqs,
+            generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev, max_steps=steps, gate_threshold=1.1)
+        serve(0, 16)   # warm-up: cuDNN plans of this variant's convs
+        torch.cuda.synchronize()
+        Q.launches = 0
+        t0 = time.perf_counter()
+        out = serve(1, 200)
+        torch.cuda.synchronize()
+        row["serve_s"] = time.perf_counter() - t0
+        launches, steps = Q.launches, out["steps_run"]
+        if launches != 2 * steps or steps != 200:
+            raise AssertionError(f"{variant}: K1 launched {launches} times "
+                                 f"in {steps} decoder steps; want 2 per "
+                                 f"step, 200 steps")
+        counts["k1"] += launches
+        for k in ("mel_postnet", "alignments", "alignments_bert"):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"{variant}: non-finite {k}")
+        row_sum_err = max((out[k].sum(-1) - 1).abs().max().item()
+                          for k in ("alignments", "alignments_bert"))
+        if row_sum_err > ATT_ROW_SUM_TOL:
+            raise AssertionError(f"{variant}: an alignment row sums to 1 "
+                                 f"+- {row_sum_err}")
+        row.update(k1_launches=launches, steps=steps,
+                   align_row_sum_max_err=row_sum_err)
+
+        # 2. the decode alone at B=4: wall per step, then its profile
+        args = TI.pad_requests(reqs, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = TM.infer(params, bn, cfg, *args[:4], text_lengths=args[4],
+                     sub_lengths=args[5], max_steps=200, gate_threshold=1.1,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+        torch.cuda.synchronize()
+        row["decode_wall_us_per_step"] = ((time.perf_counter() - t0)
+                                          / o["steps_run"] * 1e6)
+        prof, _ = profile_decode(TM, TI, params, bn, cfg, dev, REQUESTS)
+        row["profile"] = {k: prof[k] for k in (
+            "wall_us_per_step", "device_us_per_step", "device_busy_share",
+            "kernel_launches_per_step", "k1_launches_per_step",
+            "top_kernels_us_per_step")}
+        del params, bn, out, o
+
+        # 3. f32 decode at B=2, card against CPU
+        cfg32 = cfg.replace(compute_dtype="float32",
+                            prenet_dropout_always_on=False)
+        dec = []      # the card's decode, then the CPU's
+        for d, p, b in ((dev, to_device(params_cpu, dev),
+                         to_device(bn_cpu, dev)),
+                        (cpu, params_cpu, bn_cpu)):
+            a2 = TI.pad_requests(reqs[:2], d)
+            dec.append(TM.infer(p, b, cfg32, *a2[:4], text_lengths=a2[4],
+                                sub_lengths=a2[5], max_steps=ATT_PARITY_STEPS,
+                                gate_threshold=1.1))
+        errs = {}
+        for k in ("mel_postnet", "alignments", "alignments_bert"):
+            a, ref = dec[0][k].cpu(), dec[1][k]
+            errs[k] = (a - ref).abs().max().item()
+            if not (a.shape == ref.shape and ((a - ref).abs() <= ATT_DECODE_TOL
+                                              * (1 + ref.abs())).all()):
+                raise AssertionError(f"{variant}: f32 decode card vs CPU "
+                                     f"{k} max|d| {errs[k]}")
+        row["f32_decode_max_abs"] = errs
+        del dec, params_cpu, bn_cpu
+
+        # 4. one bf16 soft-DTW train step and one eval step, K2 / K3 counted
+        cfg_train = TacotronConfig(softdtw_loss_weight=1.0,
+                                   attention=variant)
+        state, tx = TT.create_train_state(torch.Generator().manual_seed(0),
+                                          cfg_train, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = train_batch(cfg_train, dev)
+        state, _ = TT.train_step(state, batch, cfg_train, tx,
+                                 generator=gen)    # warm-up
+        torch.cuda.synchronize()
+        SD.grad_launches = SD.fwd_launches = 0
+        t0 = time.perf_counter()
+        new_state, m = TT.train_step(state, batch, cfg_train, tx,
+                                     generator=gen)
+        torch.cuda.synchronize()
+        row["train_ms_per_step"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        losses, _ = TT.eval_step(new_state, batch, cfg_train, generator=gen)
+        torch.cuda.synchronize()
+        row["eval_ms"] = (time.perf_counter() - t0) * 1e3
+        k2, k3 = SD.grad_launches, SD.fwd_launches
+        if k2 != 1 or k3 != 1:
+            raise AssertionError(f"{variant}: K2 launched {k2} times in a "
+                                 f"train step, K3 {k3} times in an eval "
+                                 f"step; want 1 and 1")
+        counts["k2"] += k2
+        counts["k3"] += k3
+        vals = [v.item() for v in (*m.values(), *losses.values())]
+        if not np.isfinite(vals).all() or m["skipped"].item() != 0.0:
+            raise AssertionError(f"{variant}: train step {m}, eval {losses}")
+        row["train_loss"] = m["total"].item()
+        rnd = TM.make_randomness(
+            cfg_train, TRAIN_B, TRAIN_T_TEXT, TRAIN_T_SUB, TRAIN_T_OUT,
+            training=True, generator=gen, device=dev)
+        paths, grads = attention_grads(TT, TM, state.params, state.bn_state,
+                                       cfg_train, batch, rnd)
+        for path, g in zip(paths, grads):
+            zero = (variant in ATT_NO_PROCESSED_MEMORY
+                    and path.split(".")[1] == "memory")
+            if not torch.isfinite(g).all() or (g.abs().max().item() == 0.0) \
+                    != zero:
+                raise AssertionError(f"{variant}: bf16 gradient of {path}: "
+                                     f"max |g| {g.abs().max().item()}")
+        del state, new_state, batch, grads
+
+        # 5. the f32 gradient of every attention leaf, card against CPU
+        cfg32 = cfg_train.replace(parity_mode=True)
+        params_c, bn_c = TM.init_tacotron2(torch.Generator().manual_seed(2),
+                                           cfg32, device="cpu")
+        batch_c = train_batch(cfg32, cpu, B=2, t_out=16, T_text=16, T_sub=8,
+                              seed=3)
+        rnd_c = TM.make_randomness(cfg32, 2, 16, 8, 16, training=True,
+                                   generator=torch.Generator().manual_seed(4))
+        paths, g_c = attention_grads(TT, TM, params_c, bn_c, cfg32, batch_c,
+                                     rnd_c)
+        _, g_d = attention_grads(TT, TM, to_device(params_c, dev),
+                                 to_device(bn_c, dev), cfg32,
+                                 to_device(batch_c, dev),
+                                 to_device(rnd_c, dev))
+        floor = 1e-3 * max(g.abs().max().item() for g in g_c)
+        worst = []
+        for path, c, d in zip(paths, g_c, g_d):
+            rel = ((d.cpu() - c).abs().max().item()
+                   / max(c.abs().max().item(), floor))
+            worst.append((rel, path))
+            if rel > ATT_GRAD_RTOL:
+                raise AssertionError(f"{variant}: f32 gradient of {path}, "
+                                     f"card vs CPU: {rel} of its max")
+        worst.sort(reverse=True)
+        row["f32_grad_worst_rel"] = worst[:3]
+        row["phase_s"] = time.perf_counter() - t_phase
+        row["gpu"] = gpu
+        rows.append(row)
+        print("attention variant", json.dumps(row))
+
+    # one line of the inference CLI from a DCA checkpoint
+    root = Path(__file__).resolve().parent / "_runs" / "attention_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    dca = "DynamicConvolutionAttention"
+    a = cli_assets(str(root), TacotronConfig(attention=dca),
+                   "u0|nam anh em ba banh me an nhanh\n")
+    os.environ["T2S_RESOURCES_DIR"] = a["res"]
+    if importlib.util.find_spec("matplotlib") is None:
+        TI.save_plots = lambda *args: None
+    argv = cli_argv(a, str(root / "out"), "[decode_quant:int8-"
+                    f"gate_threshold:1.1-attention:{dca}]", CLI_STEPS,
+                    str(dev))
+    Q.launches = 0
+    t0 = time.perf_counter()
+    n_done = TI.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Q.launches
+    sr, wav = read(str(root / "out" / "audio" / "u0.wav"))
+    if n_done != 1 or launches != 2 * CLI_STEPS or sr != 22050 \
+            or wav.shape != (CLI_STEPS * 256,) or np.abs(wav).max() < 1:
+        raise AssertionError(f"{dca} CLI: {n_done} lines, K1 {launches} "
+                             f"launches (want {2 * CLI_STEPS}), wav "
+                             f"{sr} Hz {wav.shape}")
+    counts["k1"] += launches
+    print(f"attention variants: {dca} CLI line, {CLI_STEPS} steps, K1 "
+          f"{launches} launches, {wall:.4f} s wall (first line of the "
+          f"process, model and vocoder load included; {gpu})")
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1983,7 +2248,12 @@ def main() -> int:
     #    remove_silence -> evaluation (K3) -> checkpoint sweep (K1)
     after = phase_after_training(Q, SD, dev, gpu)
 
-    # 8. the kernels line: K1 per decoder step of the served batch (B=4,
+    # 8. the other five attention variants: serving, f32 decode and f32
+    #    gradients card vs CPU, the soft-DTW train and eval steps, one DCA
+    #    CLI line
+    att, _ = phase_attention_variants(Q, SD, dev, gpu)
+
+    # 9. the kernels line: K1 per decoder step of the served batch (B=4,
     #    bf16 x): the attention-LSTM call plus the decoder-LSTM call, and the
     #    same at B=128; K2 and K3 at the train step's shape, 8 x 128 x 128
     def k1_step(B):
@@ -2002,10 +2272,11 @@ def main() -> int:
     k1 = {"name": "dequant_int8_matmul", "route": "cuda",
           "source": "tacotron2_subword_tpu_torch/csrc/dequant_int8_matmul.cu",
           "replaces": "tacotron2_subword_tpu/ops/quant.py:74",
-          "launches": launches + cli_launches + after["k1"],
+          "launches": launches + cli_launches + after["k1"] + att["k1"],
           "launches_by_path": {"serve": launches, "cli": cli_launches,
                                "after_training_inference": after["k1_infer"],
-                               "checkpoint_sweep": after["k1_sweep"]},
+                               "checkpoint_sweep": after["k1_sweep"],
+                               "attention_variants": att["k1"]},
           "cli_launches": cli_launches,
           "max_abs_err": max(r["max_abs_err"] for r in k1_rows
                              if r["x"] == "bf16"),
@@ -2033,6 +2304,7 @@ def main() -> int:
              0),
             ("softdtw_fwd", "k3", "t2s_softdtw_fwd", k3_launches, real_k3,
              after["k3"])):
+        att_launches = att[key]
         errs = [r[f"{key}_value"] for r in sdtw_rows] + (
             [r[k] for r in sdtw_rows for k in ("k2_E", "k2_global_value",
                                                "k2_global_E") if k in r]
@@ -2043,10 +2315,12 @@ def main() -> int:
             "replaces": ("tacotron2_subword_tpu/ops/softdtw.py:357"
                          if key == "k2" else
                          "tacotron2_subword_tpu/ops/softdtw.py:507"),
-            "launches": step_launches + real_launches + eval_launches,
+            "launches": (step_launches + real_launches + eval_launches
+                         + att_launches),
             "launches_by_path": {"train_step": step_launches,
                                  "train_cli_real_data": real_launches,
-                                 "evaluation": eval_launches},
+                                 "evaluation": eval_launches,
+                                 "attention_variants": att_launches},
             "max_abs_err": max(errs + ([r["max_abs_err"]
                                         for r in after["k3_shapes"]]
                                        if key == "k3" else [])),

@@ -19,12 +19,12 @@ included).  The loop reads "all finished" on the host only every
 SYNC_EVERY steps; the outputs are masked by each sample's length, so
 the steps run after the last sample stopped change nothing.
 
-Teacher-forced training (``forward``) takes all of its randomness (dropout
-keep-masks, SMA noise) from one dict, drawn up front by ``make_randomness``
-or given by the caller, so a run can be replayed exactly.  With
-``cfg.custom_decoder_vjp`` the decoder loop's backward is hand-routed
-(``_TFScanCustom``): the big LSTM weight gradients are formed after the
-loop, as one f32 matmul each.
+Teacher-forced training (``forward``) takes all of its randomness
+(dropout keep-masks, SMA's noise) from one dict, drawn up front by
+``make_randomness`` or given by the caller, so a run can be replayed
+exactly.  With ``cfg.custom_decoder_vjp`` the decoder loop's backward is
+hand-routed (``_TFScanCustom``): the big LSTM weight gradients are formed
+after the loop, as one f32 matmul each.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ from tacotron2_subword_tpu_torch.config import TacotronConfig
 from tacotron2_subword_tpu_torch.models import attention as A
 from tacotron2_subword_tpu_torch.nn import layers as L
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
-from tacotron2_subword_tpu_torch.utils.tree import (cast_floats, to_device,
-                                                     tree_stack)
+from tacotron2_subword_tpu_torch.utils.tree import (
+    cast_floats, to_device, tree_leaves, tree_map, tree_stack, tree_unflatten)
 
 GATE_PAD_VALUE = 1e3
 SYNC_EVERY = 16  # decode steps between host reads of "all finished"
@@ -98,7 +98,9 @@ def _prenet_init(gen, cfg: TacotronConfig):
 def _decoder_init(gen, cfg: TacotronConfig):
     E, Ar = cfg.encoder_embedding_dim, cfg.attention_rnn_dim
     attn = lambda: A.attention_init(gen, cfg.attention, Ar, E,
-                                    cfg.attention_dim)
+                                    cfg.attention_dim,
+                                    cfg.attention_location_n_filters,
+                                    cfg.attention_location_kernel_size)
     hidden_ctx = cfg.decoder_rnn_dim + 2 * E
     return {
         "prenet": _prenet_init(gen, cfg),
@@ -226,8 +228,10 @@ class DecoderCarry(NamedTuple):
     h_dec: torch.Tensor      # [B, decoder_rnn_dim]
     c_dec: torch.Tensor      # [B, decoder_rnn_dim]
     ctx: torch.Tensor        # [2, B, encoder_embedding_dim]
-    # SMA's state; the location-based variants (not ported yet) will add
-    # the previous and cumulative weights here
+    # the previous and the cumulative weights [2, B, T]; None for the
+    # variants that do not read them (A.READS_WEIGHTS)
+    w: Optional[torch.Tensor]
+    w_cum: Optional[torch.Tensor]
     att_state: Dict[str, torch.Tensor]  # leaves stacked on axis 0
 
 
@@ -260,11 +264,14 @@ def _decoder_carry_init(cfg: TacotronConfig, B: int, T: int, dtype,
                         device) -> DecoderCarry:
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     state0 = A.init_state(cfg.attention, B, T, device=device)
+    reads_w = cfg.attention in A.READS_WEIGHTS
     return DecoderCarry(
         h_att=z(2, B, cfg.attention_rnn_dim),
         c_att=z(2, B, cfg.attention_rnn_dim),
         h_dec=z(B, cfg.decoder_rnn_dim), c_dec=z(B, cfg.decoder_rnn_dim),
         ctx=z(2, B, cfg.encoder_embedding_dim),
+        w=z(2, B, T) if reads_w else None,
+        w_cum=z(2, B, T) if reads_w else None,
         att_state={k: torch.stack([v, v]).to(dtype)
                    for k, v in state0.items()})
 
@@ -277,10 +284,10 @@ def _decode_step(rnn_s, att_s, dec_rnn, cfg: TacotronConfig,
 
     Training passes ``extras``: the scaled keep-masks att_h/att_c
     [2, B, A] and dec_h/dec_c [B, D] (the reference drops both h and c of
-    each LSTM) and SMA's noise [2, B, T].  ``taps`` are zero f32 additions
-    to the two big LSTMs' gates ([2, B, 4A], [B, 4D]) for the custom
-    backward.  Returns (new carry, hidden_ctx [B, dec + 2*embed], weights
-    [2, B, T], (att_in, dec_in) the two LSTMs' inputs)."""
+    each LSTM) and, for SMA, its noise [2, B, T].  ``taps`` are zero f32
+    additions to the two big LSTMs' gates ([2, B, 4A], [B, 4D]) for the
+    custom backward.  Returns (new carry, hidden_ctx [B, dec + 2*embed],
+    weights [2, B, T], (att_in, dec_in) the two LSTMs' inputs)."""
     att_in = torch.cat([pre_ts, carry.ctx], dim=-1)
     if "w_q" in rnn_s:
         h_att, c_att = L.lstm_cell_quant_stacked(rnn_s, att_in, carry.h_att,
@@ -292,9 +299,12 @@ def _decode_step(rnn_s, att_s, dec_rnn, cfg: TacotronConfig,
     if extras is not None:
         h_att = h_att * extras["att_h"]
         c_att = c_att * extras["att_c"]
+    w_cat = (None if carry.w is None
+             else torch.stack([carry.w, carry.w_cum], dim=2))  # [2, B, 2, T]
     ctx, w, att_state = A.attention_step(
         cfg.attention, att_s, h_att, memory_s, proc_mem_s, mask_s,
-        carry.att_state, None if extras is None else extras["noise"])
+        carry.att_state, None if extras is None else extras.get("noise"),
+        weights_cat=w_cat)
     # reference concat order: h_phone, ctx_phone, h_bert, ctx_bert
     dec_in = torch.cat([h_att[0], ctx[0], h_att[1], ctx[1]], dim=-1)
     if "w_q" in dec_rnn:
@@ -310,8 +320,11 @@ def _decode_step(rnn_s, att_s, dec_rnn, cfg: TacotronConfig,
         h_dec = h_dec * extras["dec_h"]
         c_dec = c_dec * extras["dec_c"]
     hidden_ctx = torch.cat([h_dec, ctx[0], ctx[1]], dim=-1)
-    new_carry = DecoderCarry(h_att=h_att, c_att=c_att, h_dec=h_dec,
-                             c_dec=c_dec, ctx=ctx, att_state=att_state)
+    new_carry = DecoderCarry(
+        h_att=h_att, c_att=c_att, h_dec=h_dec, c_dec=c_dec, ctx=ctx,
+        w=None if w_cat is None else w,
+        w_cum=None if w_cat is None else carry.w_cum + w,
+        att_state=att_state)
     return new_carry, hidden_ctx, w, (att_in, dec_in)
 
 
@@ -319,8 +332,8 @@ def _tf_scan_plain(cfg: TacotronConfig, rnn_s, att_s, dec_rnn, memory_s,
                    proc_mem_s, mask_s, pre, extras=None, taps=None,
                    save_xh: bool = False):
     """The teacher-forced decoder loop.  pre [T, 2, B, P]; ``extras`` holds
-    the per-step training inputs (att_h, att_c, dec_h, dec_c and noise,
-    each with a leading axis T; see ``_decode_step``) and
+    the per-step training inputs (att_h, att_c, dec_h, dec_c and SMA's
+    noise, each with a leading axis T; see ``_decode_step``) and
     ``taps`` the per-step gate taps ([T, 2, B, 4A], [T, B, 4D]).  Returns
     hidden_ctx [T, B, H] and weights [T, 2, B, T_mem], and with ``save_xh``
     the LSTMs' full inputs [x, h_prev] ([T, 2, B, K_att], [T, B, K_dec])."""
@@ -355,31 +368,37 @@ class _TFScanCustom(torch.autograd.Function):
     per-step gate gradients dG_t as the taps' gradients, with no
     weight-sized accumulator in the loop.  Then dW = sum_t xh_t^T dG_t is
     one f32 matmul per weight, cast to the compute dtype as the JAX package
-    casts it.  The forward is replayed exactly: its randomness is in
+    casts it.  Every leaf of the stacked attention tree gets autograd's
+    gradient through the replay (None for the memory layer, which the loop
+    does not read).  The forward is replayed exactly: its randomness is in
     ``extras``.
 
-    apply(cfg, mask_s, extras, rnn_w, rnn_b, dec_w, dec_b, query_w, v_w,
-    memory_s, proc_mem_s, pre) -> (hidden_ctx, weights)."""
+    apply(cfg, mask_s, extras, att_tree, rnn_w, rnn_b, dec_w, dec_b,
+    memory_s, proc_mem_s, pre, *att_leaves) -> (hidden_ctx, weights), where
+    ``att_leaves`` are ``tree_leaves(att_s)`` and ``att_tree`` is att_s
+    (read for its structure only)."""
 
     @staticmethod
-    def forward(ctx, cfg, mask_s, extras, rnn_w, rnn_b, dec_w, dec_b,
-                query_w, v_w, memory_s, proc_mem_s, pre):
-        att_s = {"query": {"w": query_w}, "v": {"w": v_w}}
-        hc, ws = _tf_scan_plain(cfg, {"w": rnn_w, "b": rnn_b}, att_s,
+    def forward(ctx, cfg, mask_s, extras, att_tree, rnn_w, rnn_b, dec_w,
+                dec_b, memory_s, proc_mem_s, pre, *att_leaves):
+        ctx.att_tree = tree_map(lambda _: None, att_tree)
+        hc, ws = _tf_scan_plain(cfg, {"w": rnn_w, "b": rnn_b},
+                                tree_unflatten(ctx.att_tree, att_leaves),
                                 {"w": dec_w, "b": dec_b}, memory_s,
                                 proc_mem_s, mask_s, pre, extras)
         ctx.cfg, ctx.extras = cfg, extras
-        ctx.save_for_backward(mask_s, rnn_w, rnn_b, dec_w, dec_b, query_w,
-                              v_w, memory_s, proc_mem_s, pre)
+        ctx.save_for_backward(mask_s, rnn_w, rnn_b, dec_w, dec_b, memory_s,
+                              proc_mem_s, pre, *att_leaves)
         return hc, ws
 
     @staticmethod
     def backward(ctx, g_hc, g_ws):
-        (mask_s, rnn_w, rnn_b, dec_w, dec_b, query_w, v_w, memory_s,
-         proc_mem_s, pre) = ctx.saved_tensors
+        (mask_s, rnn_w, rnn_b, dec_w, dec_b, memory_s, proc_mem_s, pre,
+         *att_leaves) = ctx.saved_tensors
         T, _, B = pre.shape[:3]
         leaf = lambda t: t.detach().requires_grad_(True)
-        ins = [leaf(t) for t in (query_w, v_w, memory_s, proc_mem_s, pre)]
+        att_in = [leaf(t) for t in att_leaves]
+        ins = [leaf(t) for t in (memory_s, proc_mem_s, pre)]
         taps = (torch.zeros((T, 2, B, rnn_w.shape[-1]), dtype=torch.float32,
                             device=pre.device, requires_grad=True),
                 torch.zeros((T, B, dec_w.shape[-1]), dtype=torch.float32,
@@ -387,12 +406,13 @@ class _TFScanCustom(torch.autograd.Function):
         with torch.enable_grad():
             hc, ws, (xh_att, xh_dec) = _tf_scan_plain(
                 ctx.cfg, {"w": rnn_w.detach(), "b": rnn_b.detach()},
-                {"query": {"w": ins[0]}, "v": {"w": ins[1]}},
-                {"w": dec_w.detach(), "b": dec_b.detach()}, ins[2], ins[3],
-                mask_s, ins[4], ctx.extras, taps, save_xh=True)
-            grads = torch.autograd.grad((hc, ws), (*ins, *taps),
-                                        (g_hc, g_ws))
-        dq, dv, dmem, dpm, dpre, dg_att, dg_dec = grads
+                tree_unflatten(ctx.att_tree, att_in),
+                {"w": dec_w.detach(), "b": dec_b.detach()}, ins[0], ins[1],
+                mask_s, ins[2], ctx.extras, taps, save_xh=True)
+            grads = torch.autograd.grad((hc, ws), (*ins, *taps, *att_in),
+                                        (g_hc, g_ws), allow_unused=True)
+        dmem, dpm, dpre, dg_att, dg_dec = grads[:5]
+        d_att = grads[5:]
         dtype = xh_att.dtype
         f32 = lambda t: t.detach().to(dtype).to(torch.float32)
         K_att, K_dec = xh_att.shape[-1], xh_dec.shape[-1]
@@ -403,9 +423,9 @@ class _TFScanCustom(torch.autograd.Function):
         dW_dec = f32(xh_dec).reshape(-1, K_dec).t() @ f32(dg_dec).reshape(
             T * B, -1)
         cast = lambda d, like: d.to(dtype).to(like.dtype)
-        return (None, None, None, cast(dW_att, rnn_w),
+        return (None, None, None, None, cast(dW_att, rnn_w),
                 dg_att.sum((0, 2)).to(rnn_b.dtype), cast(dW_dec, dec_w),
-                dg_dec.sum((0, 1)).to(dec_b.dtype), dq, dv, dmem, dpm, dpre)
+                dg_dec.sum((0, 1)).to(dec_b.dtype), dmem, dpm, dpre, *d_att)
 
 
 def make_randomness(cfg: TacotronConfig, B: int, T_text: int, T_sub: int,
@@ -416,9 +436,10 @@ def make_randomness(cfg: TacotronConfig, B: int, T_text: int, T_sub: int,
     [B, T_steps, prenet_dim] each, when prenet dropout is on);
     training adds "encoder"/"encoder_sub" (one mask [B, E, T] per conv),
     "postnet" (one mask [B, C_i, T_out] per layer), "att_h"/"att_c"
-    [T_steps, 2, B, A], "dec_h"/"dec_c" [T_steps, B, D] and "noise"
-    [T_steps, 2, B, max(T_text, T_sub)] (N(0, 1) * SMA_SIGMOID_NOISE, f32).
-    ``generator`` lives on ``device``."""
+    [T_steps, 2, B, A], "dec_h"/"dec_c" [T_steps, B, D] and, for SMA only
+    (no other variant reads it), "noise" [T_steps, 2, B, max(T_text,
+    T_sub)] (N(0, 1) * SMA_SIGMOID_NOISE, f32).  ``generator`` lives on
+    ``device``."""
     T_steps = T_out // cfg.n_frames_per_step
     out = {}
     need = training or cfg.prenet_dropout_always_on
@@ -447,6 +468,8 @@ def make_randomness(cfg: TacotronConfig, B: int, T_text: int, T_sub: int,
     out["att_c"] = keep((T_steps, 2, B, Ar), cfg.p_attention_dropout)
     out["dec_h"] = keep((T_steps, B, Dr), cfg.p_decoder_dropout)
     out["dec_c"] = keep((T_steps, B, Dr), cfg.p_decoder_dropout)
+    if cfg.attention != "StepwiseMonotonicAttention":
+        return out
     out["noise"] = torch.randn((T_steps, 2, B, max(T_text, T_sub)),
                                generator=generator,
                                device=device) * A.SMA_SIGMOID_NOISE
@@ -517,13 +540,13 @@ def decoder_teacher_forced(dp, cfg: TacotronConfig, memory, memory_b, mels,
             "dec_h": _scaled(randomness["dec_h"], cfg.p_decoder_dropout,
                              dtype),
             "dec_c": _scaled(randomness["dec_c"], cfg.p_decoder_dropout,
-                             dtype),
-            "noise": randomness["noise"][..., :T].to(dtype)}
+                             dtype)}
+        if cfg.attention == "StepwiseMonotonicAttention":
+            extras["noise"] = randomness["noise"][..., :T].to(dtype)
     if training and cfg.custom_decoder_vjp and torch.is_grad_enabled():
         hidden_ctx, ws = _TFScanCustom.apply(
-            cfg, mask_s, extras, rnn_s["w"], rnn_s["b"], dec_rnn["w"],
-            dec_rnn["b"], att_s["query"]["w"], att_s["v"]["w"], memory_s,
-            proc_mem_s, pre)
+            cfg, mask_s, extras, att_s, rnn_s["w"], rnn_s["b"], dec_rnn["w"],
+            dec_rnn["b"], memory_s, proc_mem_s, pre, *tree_leaves(att_s))
     else:
         hidden_ctx, ws = _tf_scan_plain(cfg, rnn_s, att_s, dec_rnn, memory_s,
                                         proc_mem_s, mask_s, pre, extras)

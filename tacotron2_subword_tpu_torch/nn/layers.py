@@ -53,13 +53,22 @@ def torch_linear_init_nobias(gen, in_dim: int, out_dim: int):
     return {"w": uniform(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim))}
 
 
+def torch_linear_init(gen, in_dim: int, out_dim: int):
+    """torch.nn.Linear's default weight and bias, both U(+-1/sqrt(in))."""
+    p = torch_linear_init_nobias(gen, in_dim, out_dim)
+    p["b"] = uniform(gen, (out_dim,), 1.0 / math.sqrt(in_dim))
+    return p
+
+
 def conv1d_init(gen, in_ch: int, out_ch: int, kernel_size: int,
-                gain: str = "linear"):
+                gain: str = "linear", bias: bool = True):
     """Xavier-uniform OIH ``w``; bias U(+-1/sqrt(fan_in))."""
     fan_in, fan_out = in_ch * kernel_size, out_ch * kernel_size
-    return {"w": xavier_uniform(gen, (out_ch, in_ch, kernel_size), fan_in,
-                                fan_out, GAINS[gain]),
-            "b": uniform(gen, (out_ch,), 1.0 / math.sqrt(fan_in))}
+    p = {"w": xavier_uniform(gen, (out_ch, in_ch, kernel_size), fan_in,
+                             fan_out, GAINS[gain])}
+    if bias:
+        p["b"] = uniform(gen, (out_ch,), 1.0 / math.sqrt(fan_in))
+    return p
 
 
 def weight_norm_init(gen, shape):

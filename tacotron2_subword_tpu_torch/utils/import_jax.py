@@ -70,7 +70,10 @@ def tacotron2_params_from_numpy(params, bn_state, cfg: TacotronConfig,
             (4 * Dr, 2 * Ar + 2 * E))
     _expect("decoder.linear_projection.w", dp["linear_projection"]["w"],
             (Dr + 2 * E, cfg.n_mel_channels * cfg.n_frames_per_step))
-    _expect("decoder.attention.query.w", dp["attention"]["query"]["w"],
+    # the attention's query-side layer: "W" for DCA, "mlp1" for GMM
+    q = {"DynamicConvolutionAttention": "W",
+         "GMMAttention": "mlp1"}.get(cfg.attention, "query")
+    _expect(f"decoder.attention.{q}.w", dp["attention"][q]["w"],
             (Ar, cfg.attention_dim))
     _expect("postnet.0.conv.w", p["postnet"][0]["conv"]["w"],
             (cfg.postnet_embedding_dim, cfg.n_mel_channels,

@@ -9,8 +9,9 @@ params + batchnorm state that both packages share (layout rules in
 built as numpy and handed to ``tacotron2_params_from_numpy``, which checks
 its shapes against the config and moves it to the device.
 
-Stepwise Monotonic Attention is the only attention the port has; a
-checkpoint of another variant raises NotImplementedError.
+Each attention variant reads its own keys.  ContentAttention reads its
+``query_layer`` and ``v`` (LinearNorm), which the JAX package's importer
+leaves out.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from tacotron2_subword_tpu_torch.config import TacotronConfig
-from tacotron2_subword_tpu_torch.models.attention import _check_variant
+from tacotron2_subword_tpu_torch.models.attention import (READS_WEIGHTS,
+                                                          _check_variant)
 from tacotron2_subword_tpu_torch.utils.import_jax import \
     tacotron2_params_from_numpy
 
@@ -93,11 +95,28 @@ def _encoder(sd, prefix, n_convs):
 
 
 def _attention(sd, prefix, variant: str):
-    """SMA's weights; another variant raises as the model's init does."""
+    """One stream's attention weights, in ``attention_init``'s tree."""
     _check_variant(variant)
-    return {"memory": _lin(sd, f"{prefix}.memory_layer"),
-            "query": _lin(sd, f"{prefix}.query_layer"),
-            "v": _plain_lin(sd, f"{prefix}.v")}
+    p = {"memory": _lin(sd, f"{prefix}.memory_layer")}
+    if variant == "DynamicConvolutionAttention":
+        p["W"] = _plain_lin(sd, f"{prefix}.W")
+        p["V"] = _plain_lin(sd, f"{prefix}.V")
+        p["F"] = {"w": _a(sd, f"{prefix}.F.weight")}
+        for k in ("U", "T", "v"):
+            p[k] = _plain_lin(sd, f"{prefix}.{k}")
+        p["prior"] = _a(sd, f"{prefix}.P")
+    elif variant == "GMMAttention":
+        p["mlp1"] = _plain_lin(sd, f"{prefix}.mlp.0")
+        p["mlp2"] = _plain_lin(sd, f"{prefix}.mlp.2")
+    else:
+        p["query"] = _lin(sd, f"{prefix}.query_layer")
+        p["v"] = (_plain_lin if variant == "StepwiseMonotonicAttention"
+                  else _lin)(sd, f"{prefix}.v")
+        if variant in READS_WEIGHTS:
+            loc = f"{prefix}.location_layer"
+            p["loc_conv"] = {"w": _a(sd, f"{loc}.location_conv.conv.weight")}
+            p["loc_dense"] = _lin(sd, f"{loc}.location_dense")
+    return p
 
 
 def params_from_torch_state_dict(sd: Mapping[str, Any], cfg: TacotronConfig,

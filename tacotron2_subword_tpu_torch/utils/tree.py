@@ -28,6 +28,13 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_unflatten(tree, leaves: Sequence):
+    """``tree``'s structure with ``leaves`` (in ``tree_leaves``' order) in
+    place of its own."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_stack(trees: Sequence) -> Any:
     """Stack the matching leaves of several same-structure trees on a new
     leading axis."""

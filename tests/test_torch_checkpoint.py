@@ -25,6 +25,7 @@ from tacotron2_subword_tpu.utils import import_torch as JIT
 from tacotron2_subword_tpu_torch import train_lib as TT
 from tacotron2_subword_tpu_torch.apps import inference as TI
 from tacotron2_subword_tpu_torch.config import TacotronConfig as TConfig
+from tacotron2_subword_tpu_torch.models import attention as TA
 from tacotron2_subword_tpu_torch.models import hifigan as THG
 from tacotron2_subword_tpu_torch.models import tacotron2 as TM
 from tacotron2_subword_tpu_torch.utils import checkpoint as TCK
@@ -33,16 +34,18 @@ from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
 from tests.test_model import SMALL, make_batch
 
 
-def _leaves_equal(port_tree, jax_tree, path="tree"):
-    """The same structure, key by key, with bit-equal leaves."""
+def _leaves_equal(port_tree, jax_tree, path="tree", subset=False):
+    """The same structure, key by key, with bit-equal leaves; with
+    ``subset`` the port's dicts may hold keys that JAX's lack."""
     if isinstance(jax_tree, dict):
-        assert sorted(port_tree) == sorted(jax_tree), path
+        assert (set(jax_tree) <= set(port_tree) if subset
+                else sorted(port_tree) == sorted(jax_tree)), path
         for k in jax_tree:
-            _leaves_equal(port_tree[k], jax_tree[k], f"{path}.{k}")
+            _leaves_equal(port_tree[k], jax_tree[k], f"{path}.{k}", subset)
     elif isinstance(jax_tree, (list, tuple)):
         assert len(port_tree) == len(jax_tree), path
         for i, (t, j) in enumerate(zip(port_tree, jax_tree)):
-            _leaves_equal(t, j, f"{path}.{i}")
+            _leaves_equal(t, j, f"{path}.{i}", subset)
     else:
         np.testing.assert_array_equal(port_tree.numpy(), np.asarray(jax_tree),
                                       err_msg=path)
@@ -104,9 +107,11 @@ def test_meta_matches_jax_and_orbax_is_refused(tmp_path):
         TCK.load_checkpoint(jpath, device="cpu")
 
 
-def reference_state_dict(params, bn, cfg):
+def reference_state_dict(params, bn, cfg, bert_attention=True):
     """The reference BERT_Tacotron2 state dict of a JAX param tree
-    (torch Linear weights [out, in]), numpy."""
+    (torch Linear weights [out, in]), numpy, with ``cfg.attention``'s keys;
+    without ``bert_attention`` no ``attention_layer_bert`` (the reference
+    builds it for SMA only)."""
     sd = {}
     p = jax.tree_util.tree_map(np.asarray, params)
     bn = jax.tree_util.tree_map(np.asarray, bn)
@@ -149,11 +154,27 @@ def reference_state_dict(params, bn, cfg):
             lin(f"decoder.{net}.layers.{i}", d[net][i])
     for rnn in ("attention_rnn", "attention_rnn_bert", "decoder_rnn"):
         cell(f"decoder.{rnn}", d[rnn])
-    for att, name in (("attention", "attention_layer"),
-                      ("attention_bert", "attention_layer_bert")):
-        lin(f"decoder.{name}.memory_layer", d[att]["memory"])
-        lin(f"decoder.{name}.query_layer", d[att]["query"])
-        lin(f"decoder.{name}.v", d[att]["v"], plain=True)
+    names = (("attention", "attention_layer"),
+             ("attention_bert", "attention_layer_bert"))
+    for att, name in names[:2 if bert_attention else 1]:
+        q, pre = d[att], f"decoder.{name}"
+        lin(f"{pre}.memory_layer", q["memory"])
+        if cfg.attention == "DynamicConvolutionAttention":
+            for k in ("W", "V", "U", "T", "v"):
+                lin(f"{pre}.{k}", q[k], plain=True)
+            sd[f"{pre}.F.weight"] = q["F"]["w"]
+            sd[f"{pre}.P"] = q["prior"]
+        elif cfg.attention == "GMMAttention":
+            lin(f"{pre}.mlp.0", q["mlp1"], plain=True)
+            lin(f"{pre}.mlp.2", q["mlp2"], plain=True)
+        else:
+            lin(f"{pre}.query_layer", q["query"])
+            lin(f"{pre}.v", q["v"],
+                plain=cfg.attention == "StepwiseMonotonicAttention")
+        if "loc_conv" in q:
+            loc = f"{pre}.location_layer"
+            sd[f"{loc}.location_conv.conv.weight"] = q["loc_conv"]["w"]
+            lin(f"{loc}.location_dense", q["loc_dense"])
     lin("decoder.linear_projection", d["linear_projection"])
     lin("decoder.gate_layer", d["gate_layer"])
     return sd
@@ -204,11 +225,52 @@ def test_reference_state_dict_imports_like_jax(tmp_path):
         TIT.params_from_torch_state_dict(sd, tcfg, device="cpu")
 
 
-def test_other_attention_variants_raise():
-    cfg = SMALL.replace(attention="LocationSensitiveAttention")
+@pytest.mark.parametrize("bert_attention", [False, True])
+@pytest.mark.parametrize("variant", [
+    "LocationSensitiveAttention", "ForwardAttentionV2", "ContentAttention",
+    "DynamicConvolutionAttention", "GMMAttention"])
+def test_reference_state_dict_of_every_variant_imports_like_jax(
+        variant, bert_attention):
+    """Each variant's reference keys, with the subword stream's attention
+    (SMA's layout) or without it (the reference's, for the other
+    variants: the phone stream's weights drive both).  The tree equals the
+    JAX import wherever JAX has the leaf, equals the weights the state dict
+    was made from, and has ``init_tacotron2``'s structure.  JAX's importer
+    has no ContentAttention branch: its tree lacks ``query`` and ``v``,
+    which the port reads."""
+    cfg = SMALL.replace(attention=variant)
+    tcfg = TConfig(**dataclasses.asdict(cfg))
+    params, bn = JM.init_tacotron2(jax.random.PRNGKey(5), cfg)
+    sd = reference_state_dict(params, bn, cfg, bert_attention)
+    jp, _ = JIT.params_from_torch_state_dict(sd, cfg)
+    tp, tbn = TIT.params_from_torch_state_dict(sd, tcfg, device="cpu")
+    _leaves_equal(tp, jp, subset=True)
+    if variant == "ContentAttention":
+        assert "query" not in jp["decoder"]["attention"]
+    src = params["decoder"]
+    _leaves_equal(tp["decoder"]["attention"], src["attention"])
+    _leaves_equal(tp["decoder"]["attention_bert"],
+                  src["attention_bert" if bert_attention else "attention"])
+    ip, ibn = TM.init_tacotron2(torch.Generator().manual_seed(0), tcfg,
+                                device="cpu")
+    for t, i in ((tp, ip), (tbn, ibn)):
+        assert (jax.tree_util.tree_structure(t)
+                == jax.tree_util.tree_structure(i))
+        assert [a.shape for a in tree_leaves(t)] == [a.shape for a in
+                                                     tree_leaves(i)]
+    # a key of the variant is missing: the import raises
+    key = next(k for k in sd if k.startswith("decoder.attention_layer.")
+               and "memory_layer" not in k)
+    del sd[key]
+    with pytest.raises(KeyError):
+        TIT.params_from_torch_state_dict(sd, tcfg, device="cpu")
+
+
+def test_unknown_attention_variant_raises():
+    cfg = SMALL.replace(attention="MonotonicAttention")
     params, bn = JM.init_tacotron2(jax.random.PRNGKey(0), SMALL)
     sd = reference_state_dict(params, bn, SMALL)
-    with pytest.raises(NotImplementedError, match="LocationSensitive"):
+    with pytest.raises(ValueError, match="unknown attention variant"):
         TIT.params_from_torch_state_dict(
             sd, TConfig(**dataclasses.asdict(cfg)), device="cpu")
 
@@ -254,10 +316,10 @@ def test_hifigan_reference_checkpoint_matches_jax(tmp_path, resblock, fused):
     assert np.abs(v - j[:, 0]).max() <= 1e-5 * np.abs(j).max()
 
 
-def _trained_state(steps=2):
+def _trained_state(steps=2, attention="StepwiseMonotonicAttention"):
     """A SMALL port state after ``steps`` train steps (Adam moments and BN
     statistics that a fresh init does not have)."""
-    cfg = TConfig(**dataclasses.asdict(SMALL))
+    cfg = TConfig(**dataclasses.asdict(SMALL.replace(attention=attention)))
     state, tx = TT.create_train_state(torch.Generator().manual_seed(3), cfg,
                                       device="cpu")
     b = make_batch(SMALL)
@@ -289,6 +351,30 @@ def test_round_trip_of_a_trained_state_continues_bit_equal(tmp_path):
     for x, y in zip(tree_leaves((a.params, a.bn_state, list(a.opt_state))),
                     tree_leaves((b.params, b.bn_state, list(b.opt_state)))):
         assert torch.equal(x, y)
+
+
+def test_round_trip_and_warm_start_of_a_dca_state(tmp_path):
+    """A trained DynamicConvolutionAttention state (its prior a trained
+    leaf, as in the JAX package) round-trips bit for bit and continues
+    bit-equal; warm start onto a fresh DCA state loads it."""
+    attention = "DynamicConvolutionAttention"
+    state, tx, batch, cfg = _trained_state(steps=1, attention=attention)
+    prior = state.params["decoder"]["attention"]["prior"]
+    assert not torch.equal(prior, TA.dca_prior())
+    back, _ = TCK.load_checkpoint(TCK.save_checkpoint(state, str(tmp_path)),
+                                  device="cpu")
+    (a, ma), (b, mb) = [TT.train_step(
+        s, batch, cfg, tx, generator=torch.Generator().manual_seed(9))
+        for s in (state, back)]
+    assert ma["total"].item() == mb["total"].item()
+    for x, y in zip(tree_leaves((a.params, a.bn_state, list(a.opt_state))),
+                    tree_leaves((b.params, b.bn_state, list(b.opt_state)))):
+        assert torch.equal(x, y)
+    fresh, _ = TT.create_train_state(torch.Generator().manual_seed(99), cfg,
+                                     device="cpu")
+    warm = TCK.warm_start(TCK.checkpoint_path(str(tmp_path), 1), fresh)
+    assert torch.equal(warm.params["decoder"]["attention"]["prior"], prior)
+    assert torch.equal(warm.params["embedding"], fresh.params["embedding"])
 
 
 def test_warm_start_keeps_ignore_layers_and_loads_the_rest(tmp_path):

@@ -277,6 +277,54 @@ def test_best_checkpoint_matches_jax_and_resumes(assets, monkeypatch,
 
 
 # ---------------------------------------------------------------------------
+# the CLIs with the other attention variants
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cli, variant", [
+    ("inference", "DynamicConvolutionAttention"),
+    ("gta", "LocationSensitiveAttention"),
+    ("best_checkpoint", "ForwardAttentionV2")])
+def test_clis_run_other_attention_variants(assets, tmp_path, monkeypatch,
+                                           cli, variant):
+    """Each CLI with ``--hparams ...-attention:<Variant>`` on a port
+    checkpoint of that variant (``save_checkpoint`` of a seeded SMALL
+    state); finite outputs of the expected count."""
+    from tacotron2_subword_tpu_torch.apps import inference as TI
+    d = assets
+    hp = HP[:-1] + f"-attention:{variant}]"
+    tcfg = TConfig(**dataclasses.asdict(SMALL.replace(attention=variant)))
+    state, _ = TT.create_train_state(torch.Generator().manual_seed(0), tcfg,
+                                     device="cpu")
+    ck = str(tmp_path / "ck")
+    path = TCK.save_checkpoint(state._replace(step=100), ck)
+    monkeypatch.setenv("T2S_RESOURCES_DIR", str(d / "res"))
+    if cli == "inference":
+        n = TI.main(["--script", str(d / "val.txt"), "--checkpoint-dir", ck,
+                     "--out-dir", str(tmp_path / "out"), "--g2p-lexicon",
+                     str(d / "res" / "small.lex"), "--max-decoder-steps",
+                     "8", "--hparams", hp, "--device", "cpu"])
+        wavs = sorted((tmp_path / "out").rglob("*.wav"))
+        assert n == 2 and len(wavs) == 2
+        assert all(np.isfinite(read(str(w))[1]).all() for w in wavs)
+    elif cli == "gta":
+        n = TG.main([str(d / "train.txt"), path, str(tmp_path / "gta"),
+                     "--sub-dir", str(d / "subs"), "--cls-dir",
+                     str(d / "cls"), "--batch-size", "2", "--hparams", hp,
+                     "--device", "cpu"])
+        mels = [np.load(tmp_path / "gta" / f"utt{i}.npy") for i in range(4)]
+        assert n == 4 and all(np.isfinite(m).all() for m in mels)
+    else:
+        argv = _sweep_argv(d, "port_ck", "x.csv")
+        argv[argv.index("--checkpoint-dir") + 1] = ck
+        argv[argv.index("--out-csv") + 1] = str(tmp_path / "v.csv")
+        argv[argv.index("--hparams") + 1] = hp
+        rows = TBC.main(argv + ["--device", "cpu"])
+        assert [r["checkpoint"] for r in rows] == ["checkpoint_100"]
+        row = TBC.read_ledger(str(tmp_path / "v.csv"))["checkpoint_100"]
+        assert row["failed"] == "0" and row["n_utts"] == "2"
+
+
+# ---------------------------------------------------------------------------
 # evaluation and silence trimming
 # ---------------------------------------------------------------------------
 

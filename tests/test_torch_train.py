@@ -104,8 +104,11 @@ def _decoder_randomness(cfg, k_dec, B, T_mem, T_out, training):
                             cfg.p_attention_dropout)
         out["dec_h"] = bern(kc, (T_steps, B, D_dim), cfg.p_decoder_dropout)
         out["dec_c"] = bern(kd, (T_steps, B, D_dim), cfg.p_decoder_dropout)
-        out["noise"] = (jax.random.normal(kn, (T_steps, 2, B, T_mem))
-                        * JA.SMA_SIGMOID_NOISE)
+        # only SMA reads the noise (the JAX package gives the other
+        # variants zeros)
+        if cfg.attention == "StepwiseMonotonicAttention":
+            out["noise"] = (jax.random.normal(kn, (T_steps, 2, B, T_mem))
+                            * JA.SMA_SIGMOID_NOISE)
     return out
 
 
@@ -116,7 +119,7 @@ def _shape_cfg(cfg):
             "encoder_n_convolutions", "postnet_n_convolutions",
             "n_mel_channels", "postnet_embedding_dim", "attention_rnn_dim",
             "decoder_rnn_dim", "p_attention_dropout", "p_decoder_dropout",
-            "prenet_dropout_always_on")
+            "prenet_dropout_always_on", "attention")
     return SMALL.__class__(**{k: getattr(cfg, k) for k in keep})
 
 
@@ -350,7 +353,9 @@ def _grads_both(cfg):
         p.requires_grad_(True)
     out, _ = TM.forward(tp, tbn, tcfg, tb, training=True, randomness=rnd)
     total = TT.tacotron2_loss(out, tb, tcfg, 0)["total"]
-    tg = torch.autograd.grad(total, leaves)
+    # DCA and GMM read no processed memory: their memory layer gets none
+    tg = [torch.zeros_like(p) if g is None else g for g, p in zip(
+        torch.autograd.grad(total, leaves, allow_unused=True), leaves)]
     it = iter(tg)
     return _leaves(jg), _leaves(tree_map(lambda _: next(it).numpy(), tp))
 
