@@ -43,7 +43,14 @@ the port at full width:
    (``phase_attention_variants``): each served (K1 counted), profiled,
    decoded in f32 and differentiated in f32 on the card against the CPU,
    and trained one soft-DTW step (K2, K3 counted); one inference CLI line
-   from a DCA checkpoint.
+   from a DCA checkpoint;
+ - the other vocoders and the tool CLIs (``phase_vocoders_and_tools``):
+   WaveGlow at the published widths (synthesis in f32 and bf16 at B=1 and
+   4 against its FLOP bound, card vs CPU, the three reference layouts,
+   train_waveglow with checkpoints and resume), the ONNX HiFi-GAN (the
+   port's exporter, its executor on the card against the native generator,
+   one int8 CLI line with K1 counted), and preprocess, dump_phone_id_map,
+   check_bert_emb and the demo (int8, K1 counted).
 
 ``python3 chip_smoke.py --k1-splits`` builds the kernels and times K1 at
 every number of K splits instead (the table behind ``ops/quant.k1_plan``).
@@ -2171,6 +2178,549 @@ def phase_attention_variants(Q, SD, dev, gpu):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# Vocoders and tools: WaveGlow, the ONNX vocoder, the remaining tool CLIs
+# ---------------------------------------------------------------------------
+
+WG_FRAMES = 200          # 2.32 s of audio at hop 256
+WG_PARITY_FRAMES = 16    # the f32 synthesis on the card against the CPU
+WG_END_STD = 3e-3        # seeded end convs: each coupling does real work
+WG_F32_TOL = 1e-4        # f32 synthesis, card vs CPU, of the wav's max
+WG_BF16_TOL = 0.1        # bf16 against f32 synthesis on the card, of max
+WG_TRAIN_ITERS = 4       # train_waveglow iterations before the resume
+WG_STEP_SAMPLES = 4000   # the f32 train step, card vs CPU, at B=1
+WG_GRAD_RTOL = 1e-3      # its gradients, of each leaf's max |g|
+ONNX_TOL = 1e-5          # the ONNX executor against generator_apply
+# preprocess mels, card vs CPU, of the mels' scale: a log-mel bin of low
+# energy turns the f32 STFT's rounding (another sum order on the card) into
+# a larger log error; the GTA mels' card-vs-CPU bound
+MEL_TOL = 1e-4
+DEMO_SENTENCES = "Ba me em nam. Anh banh an me ba! Em nam ba me?"
+
+
+def waveglow_flops_per_sample(cfg) -> float:
+    """FLOPs of one synthesized sample at ``cfg``'s widths: per flow and
+    per group step of n_group samples, the WN's start conv, the cond conv,
+    the dilated in_layers, the res / skip convs and the end conv, and the
+    1x1 mixing; plus the upsampler's share (one transposed conv frame per
+    hop)."""
+    C, L, k, G = cfg.wn_channels, cfg.wn_layers, cfg.wn_kernel_size, \
+        cfg.n_group
+    total, n_rem = 0.0, G
+    for f in range(cfg.n_flows):
+        if f % cfg.n_early_every == 0 and f > 0:
+            n_rem -= cfg.n_early_size
+        h = n_rem // 2
+        macs = (h * C + cfg.n_mel_channels * G * 2 * C * L + L * 2 * C * C * k
+                + (L - 1) * 2 * C * C + C * C + C * 2 * h + n_rem * n_rem)
+        total += 2 * macs
+    M = cfg.n_mel_channels
+    return total / G + 2 * M * M * cfg.upsample_kernel / cfg.upsample_stride
+
+
+def wg_seeded(WG, cfg, seed):
+    """Seeded WaveGlow params on the CPU with each end conv drawn from
+    N(0, WG_END_STD) (at init it is zero, every coupling the identity)."""
+    gen = torch.Generator().manual_seed(seed)
+    p = WG.init_waveglow(gen, cfg, device="cpu")
+    for wn in p["wn"]:
+        wn["end"]["w"] = WG_END_STD * torch.randn(wn["end"]["w"].shape,
+                                                  generator=gen)
+    return p
+
+
+def wg_reference_state_dict(params, cfg, layout):
+    """The reference state dict of the port's WaveGlow ``params`` in one of
+    its three layouts: "fused" (cond_layer, res_skip_layers), "vendored"
+    (cond_layers.{i}) and "old" (cond_layers.{i}, res_layers /
+    skip_layers; the last layer has no res conv), by splitting rows."""
+    C, L = cfg.wn_channels, cfg.wn_layers
+    sd = {"upsample.weight": params["upsample"]["w"],
+          "upsample.bias": params["upsample"]["b"]}
+
+    def put(prefix, conv, rows=slice(None)):
+        for k, name in (("v", "weight_v"), ("g", "weight_g"),
+                        ("w", "weight"), ("b", "bias")):
+            if k in conv:
+                sd[f"{prefix}.{name}"] = conv[k][rows].clone()
+
+    for f in range(cfg.n_flows):
+        sd[f"convinv.{f}.conv.weight"] = params["convinv"][f]["w"][:, :, None]
+        wn, pre = params["wn"][f], f"WN.{f}"
+        for name in ("start", "end"):
+            put(f"{pre}.{name}", wn[name])
+        for i in range(L):
+            put(f"{pre}.in_layers.{i}", wn["in_layers"][i])
+            if layout == "fused":
+                continue
+            put(f"{pre}.cond_layers.{i}", wn["cond"],
+                slice(i * 2 * C, (i + 1) * 2 * C))
+        if layout == "fused":
+            put(f"{pre}.cond_layer", wn["cond"])
+        for i in range(L):
+            rs = wn["res_skip"][i]
+            if layout != "old":
+                put(f"{pre}.res_skip_layers.{i}", rs)
+            elif i < L - 1:
+                put(f"{pre}.res_layers.{i}", rs, slice(0, C))
+                put(f"{pre}.skip_layers.{i}", rs, slice(C, 2 * C))
+            else:
+                put(f"{pre}.skip_layers.{i}", rs)
+    return sd
+
+
+def _median_s(fn, reps=5):
+    """Median wall s of ``fn`` over ``reps`` calls after one warm-up, each
+    ended by a device sync (a slow call now and then, as the host's other
+    work gives, does not move it)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def _sync_sites(fn):
+    """The host syncs ``fn`` makes, {"file:line": count} of the lines that
+    made them (torch's sync debug mode warns at each one)."""
+    import collections
+    import os
+    import traceback
+    import warnings
+    sites = collections.Counter()
+    real = warnings.showwarning
+
+    def record(message, category, filename, lineno, *a, **k):
+        if "synchroniz" in str(message):
+            here = [f for f in traceback.extract_stack()
+                    if "tacotron2_subword_tpu_torch" in f.filename]
+            f = here[-1] if here else None
+            sites[f"{os.path.basename(f.filename)}:{f.lineno}" if f
+                  else f"{filename}:{lineno}"] += 1
+    warnings.showwarning = record
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        warnings.showwarning = real
+    return dict(sites)
+
+
+def profile_call(fn, n_top=6):
+    """One call of ``fn`` under torch.profiler: wall ms, device ms (the
+    CUDA kernels' self time), device-busy share, kernel launches and the
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:n_top]
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+            "device_busy_share": dev_us / (wall * 1e6),
+            "kernel_launches": sum(e.count for e in kern),
+            "top_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3,
+                                e.count] for e in top]}
+
+
+def phase_vocoders_and_tools(Q, dev, gpu):
+    """WaveGlow, the ONNX HiFi-GAN and the remaining tool CLIs at full
+    width (the published WaveGlow widths, HiFi-GAN v1, the Tacotron 2 of
+    ``phase_cli``), every CLI in-process through its main(argv):
+     1. WaveGlow synthesis from seeded weights (``wg_seeded``) of a 200-frame
+        mel: f32 and bf16 at B=1 and B=4, kHz of audio per second against
+        the FLOP bound (``waveglow_flops_per_sample``), the host syncs of
+        one synthesis (W's inverse); one f32 synthesis of WG_PARITY_FRAMES
+        frames on the card against the CPU with the latents injected
+        (WG_F32_TOL), and bf16 against f32 (WG_BF16_TOL);
+     2. the reference round trip: one seeded WaveGlow through its three
+        state-dict layouts imports to three equal trees, equal to it;
+     3. train_waveglow at the published widths on the corpus of
+        ``phase_after_training`` (``write_at_corpus``, seed 0): B=4,
+        WG_TRAIN_ITERS iterations with checkpoints, then --resume for 2 (the
+        loaded params, Adam state and sampler bit-equal to the file, the
+        iterations going on); s/it and peak memory; the f32 loss and
+        gradients of one step at B=1 on a WG_STEP_SAMPLES segment on the
+        card against the CPU (loss 1e-5 relative, each gradient leaf
+        WG_GRAD_RTOL of its max);
+     4. ONNX: ``phase_cli``'s g_ file exported by the port's exporter, the
+        executor on the card against ``generator_apply`` (ONNX_TOL) with
+        both timed, one int8 CLI line with the .onnx vocoder (K1 == 2 x
+        steps, 32768 scaling, no denoiser) timed by stage, and the .tflite
+        path raising without tensorflow;
+     5. the tools: preprocess mels of the 16 corpus wavs on the card
+        against the CPU (MEL_TOL of the scale) with ms per wav, phones,
+        subwords (crc32), lists and check; dump_phone_id_map on the 7-word
+        lexicon; check_bert_emb --fallback-vocabs; the demo on three
+        sentences with the int8 decode (K1 == 2 x steps), wall per
+        sentence.
+    Returns {k1_onnx, k1_demo}: the K1 launches of the counted runs."""
+    import importlib.util
+    import os
+    import shutil
+    from pathlib import Path
+    from scipy.io.wavfile import read
+    from tacotron2_subword_tpu_torch.apps import check_bert_emb as TCB
+    from tacotron2_subword_tpu_torch.apps import demo as TD
+    from tacotron2_subword_tpu_torch.apps import dump_phone_id_map as TDP
+    from tacotron2_subword_tpu_torch.apps import inference as TI
+    from tacotron2_subword_tpu_torch.apps import preprocess as TP
+    from tacotron2_subword_tpu_torch.apps import train_waveglow as TTW
+    from tacotron2_subword_tpu_torch.models import hifigan as HG
+    from tacotron2_subword_tpu_torch.models import waveglow as WG
+    from tacotron2_subword_tpu_torch.tools import export_hifigan_onnx as TEX
+    from tacotron2_subword_tpu_torch.utils.import_torch import \
+        waveglow_params_from_torch_state_dict
+    from tacotron2_subword_tpu_torch.utils.tree import (cast_floats,
+                                                        to_device,
+                                                        tree_leaves)
+    cpu = torch.device("cpu")
+    root = Path(__file__).resolve().parent / "_runs" / "vocoders_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    report = {"gpu": gpu}
+    t_phase = time.perf_counter()
+
+    # 1. WaveGlow synthesis (the earlier phases' cached blocks released
+    # first, so no timed call waits on the allocator)
+    torch.cuda.empty_cache()
+    cfg = WG.WaveGlowConfig()
+    p_cpu = wg_seeded(WG, cfg, 0)
+    p32 = to_device(p_cpu, dev)
+    p16 = cast_floats(p32, torch.bfloat16)
+    flops = waveglow_flops_per_sample(cfg)
+    rng = np.random.RandomState(0)
+    synth = {}
+    for B in (1, 4):
+        mel = torch.from_numpy((rng.randn(B, 80, WG_FRAMES) - 5.0).astype(
+            np.float32)).to(dev)
+        for name, p, m in (("f32", p32, mel),
+                           ("bf16", p16, mel.to(torch.bfloat16))):
+            gen = torch.Generator(device=dev).manual_seed(1)
+            with torch.inference_mode():
+                s = _median_s(lambda: WG.infer(p, cfg, m, sigma=0.6,
+                                               generator=gen))
+                y = WG.infer(p, cfg, m, sigma=0.6, generator=gen)
+            n = B * WG_FRAMES * cfg.upsample_stride
+            if y.shape != (B, WG_FRAMES * 256) or not torch.isfinite(
+                    y.float()).all():
+                raise AssertionError(f"waveglow {name} B={B}: {y.shape}")
+            peak = BF16_PEAK if name == "bf16" else F32_PEAK
+            synth[f"{name}_B{B}"] = {
+                "ms": s * 1e3, "khz": n / s / 1e3,
+                "bound_ms": n * flops / peak * 1e3,
+                "bound_khz": peak / flops / 1e3}
+    with torch.inference_mode():
+        m1 = torch.from_numpy((rng.randn(1, 80, WG_FRAMES) - 5.0).astype(
+            np.float32)).to(dev)
+        gen1 = torch.Generator(device=dev).manual_seed(1)
+        syncs = _sync_sites(lambda: WG.infer(p32, cfg, m1, sigma=0.6,
+                                             generator=gen1))
+        prof = {name: profile_call(lambda: WG.infer(
+            p, cfg, m1.to(p["upsample"]["w"].dtype), sigma=0.6,
+            generator=gen1)) for name, p in (("f32", p32), ("bf16", p16))}
+        # f32 card vs CPU, latents injected; bf16 vs f32 on the card
+        mp = torch.from_numpy((rng.randn(1, 80, WG_PARITY_FRAMES)
+                               - 5.0).astype(np.float32))
+        Tg = WG_PARITY_FRAMES * 256 // cfg.n_group
+        noise = [torch.randn(s, generator=torch.Generator().manual_seed(2))
+                 for s in WG.latent_shapes(cfg, 1, Tg)]
+        y_card = WG.infer(p32, cfg, mp.to(dev), sigma=0.6, noise=noise).cpu()
+        y_16 = WG.infer(p16, cfg, mp.to(dev, torch.bfloat16), sigma=0.6,
+                        noise=noise).float().cpu()
+        y_cpu = WG.infer(p_cpu, cfg, mp, sigma=0.6, noise=noise)
+    scale = y_cpu.abs().max().item()
+    err32 = (y_card - y_cpu).abs().max().item() / scale
+    err16 = (y_16 - y_card).abs().max().item() / scale
+    if not (err32 <= WG_F32_TOL and err16 <= WG_BF16_TOL):
+        raise AssertionError(f"waveglow synthesis: f32 card vs CPU {err32}, "
+                             f"bf16 vs f32 {err16} (of the max)")
+    report["waveglow_synthesis"] = {
+        "frames": WG_FRAMES, "sigma": 0.6, "mflop_per_sample": flops / 1e6,
+        **synth, "host_syncs_per_synthesis": syncs, "profile_B1": prof,
+        "f32_card_vs_cpu": err32, "bf16_vs_f32": err16}
+    print("vocoders waveglow synthesis", json.dumps(
+        report["waveglow_synthesis"]))
+    del p16, y_card, y_16
+
+    # 2. the reference layouts round trip
+    trees = [waveglow_params_from_torch_state_dict(
+        wg_reference_state_dict(p_cpu, cfg, layout), cfg, device=cpu)
+        for layout in ("fused", "vendored", "old")]
+    base = tree_leaves(p_cpu)
+    for t in trees:
+        leaves = tree_leaves(t)
+        if len(leaves) != len(base) or not all(
+                torch.equal(a, b) for a, b in zip(leaves, base)):
+            raise AssertionError("waveglow reference layouts differ")
+    report["waveglow_layouts"] = {"layouts": 3, "leaves": len(base)}
+    del trees, p32
+
+    # 3. train_waveglow on the seeded corpus, then one f32 step card vs CPU
+    data = root / "data"
+    write_at_corpus(data, np.random.RandomState(0))
+    out = root / "waveglow"
+    argv = ["-o", str(out), "--wav-dir", str(data / "wav"), "--batch-size",
+            "4", "--iters-per-checkpoint", "2", "--device", str(dev)]
+    loaded = []
+    undo = _spy(TTW, "load_waveglow", loaded)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        r1 = TTW.main(argv + ["--iters", str(WG_TRAIN_ITERS)])
+        peak = torch.cuda.max_memory_allocated()
+        ck = out / f"waveglow_{WG_TRAIN_ITERS}"
+        saved = torch.load(ck, map_location="cpu", weights_only=True)
+        r2 = TTW.main(argv + ["--iters", "2", "--resume", str(ck)])
+    finally:
+        undo()
+    params, opt, it, rng_state = loaded[0][1]
+    same = [torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves([params, opt._asdict()]),
+        tree_leaves([saved["params"], saved["opt_state"]]))]
+    if not (all(same) and len(same) == 3 * len(tree_leaves(p_cpu)) + 1
+            and it == WG_TRAIN_ITERS
+            and torch.equal(rng_state["keys"], saved["data_rng"]["keys"])
+            and rng_state["pos"] == saved["data_rng"]["pos"]
+            and r2["start_iteration"] == WG_TRAIN_ITERS
+            and r2["iterations"] == WG_TRAIN_ITERS + 2
+            and r1["checkpoints"] == [str(out / "waveglow_2"), str(ck)]
+            and (out / f"waveglow_{WG_TRAIN_ITERS + 2}").exists()
+            and np.isfinite(r1["losses"] + r2["losses"]).all()):
+        raise AssertionError(f"train_waveglow: resume {sum(same)} / "
+                             f"{len(same)} leaves equal, it {it}, runs "
+                             f"{r1['checkpoints']} {r2['iterations']}")
+    cfg_w, lr, sigma = TTW.load_config(None)
+    audio = torch.from_numpy(TTW.SyntheticWavs(
+        1, segment=WG_STEP_SAMPLES).sample_batch(1))
+    grads = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        grads[name] = TTW.loss_and_grads(to_device(p_cpu, d), audio.to(d),
+                                         cfg_w, sigma)
+    lc, lh = grads["card"][0].item(), grads["cpu"][0].item()
+    g_err = max(((a.cpu() - b).abs().max()
+                 / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(tree_leaves(grads["card"][1]),
+                                tree_leaves(grads["cpu"][1])))
+    if not (abs(lc - lh) <= 1e-5 * abs(lh) and g_err <= WG_GRAD_RTOL):
+        raise AssertionError(f"waveglow f32 step, card vs CPU: loss {lc} / "
+                             f"{lh}, gradients {g_err} of a leaf's max")
+    s_it = r1["s_per_it"][1:] + r2["s_per_it"][1:]
+    report["train_waveglow"] = {
+        "B": 4, "segment": TTW.SEGMENT, "iters": WG_TRAIN_ITERS + 2,
+        "s_per_it": float(np.median(s_it)), "s_per_it_all": r1["s_per_it"]
+        + r2["s_per_it"], "peak_gb": peak / 1e9,
+        "losses": r1["losses"] + r2["losses"], "resume_leaves": len(same),
+        "f32_step_card_vs_cpu": {"loss": abs(lc - lh) / abs(lh),
+                                 "grads_of_leaf_max": g_err}}
+    print("vocoders train_waveglow", json.dumps(report["train_waveglow"]))
+
+    # 4. ONNX: export the CLI's g_ file, the executor on the card, one line
+    a = cli_assets(str(root / "cli"), script_text="u0|ba me em nam\n")
+    os.environ["T2S_RESOURCES_DIR"] = a["res"]
+    onnx = str(root / "hifigan_v1.onnx")
+    n_bytes = TEX.main(["--out", onnx, "--checkpoint", a["hifigan"],
+                        "--config", a["config"]])
+    from tacotron2_subword_tpu_torch.models.vocoder_runtimes import \
+        load_onnx_vocoder
+    h = HG.HifiganConfig()
+    ck_g = torch.load(a["hifigan"], map_location="cpu", weights_only=True)
+    native = HG.fuse_generator(HG.import_torch_generator(
+        ck_g["generator"], h, device=dev))
+    voc = load_onnx_vocoder(onnx, dev)
+    mel = torch.from_numpy((rng.randn(1, 80, 256) - 5.0).astype(
+        np.float32)).to(dev)
+    with torch.inference_mode():
+        t_onnx = _median_s(lambda: voc(mel))
+        t_native = _median_s(lambda: HG.generator_apply(native, h, mel))
+        yo = voc(mel)
+        yn = HG.generator_apply(native, h, mel)[:, 0, :]
+    onnx_err = ((yo - yn).abs().max() / yn.abs().max()).item()
+    if yo.device != mel.device or not onnx_err <= ONNX_TOL:
+        raise AssertionError(f"onnx executor vs generator_apply: {onnx_err} "
+                             f"on {yo.device}")
+    results = []
+    synth_text, plots = TI.synthesize_text, TI.save_plots
+
+    def spy(syn, text):
+        results.append(synth_text(syn, text))
+        return results[-1]
+    TI.synthesize_text = spy
+    if importlib.util.find_spec("matplotlib") is None:
+        TI.save_plots = lambda *args: None   # as phase_cli: no plots
+    args = TI.build_argparser().parse_args(
+        cli_argv(a, str(root / "onnx_out"),
+                 "[decode_quant:int8-gate_threshold:1.1]", CLI_STEPS,
+                 str(dev), hifigan=False)
+        + ["--hifigan-checkpoint", onnx])
+    try:
+        Q.launches = 0
+        t0 = time.perf_counter()
+        n_done = TI.run_inference(args)
+        torch.cuda.synchronize()
+        onnx_wall = time.perf_counter() - t0
+        k1_onnx = Q.launches
+    finally:
+        TI.synthesize_text, TI.save_plots = synth_text, plots
+    r = results[0]
+    sr, wav = read(str(root / "onnx_out" / "audio" / "u0.wav"))
+    if not (n_done == 1 and k1_onnx == 2 * r["steps_run"] == 2 * CLI_STEPS
+            and sr == 22050 and wav.shape == (CLI_STEPS * 256,)
+            and "denoiser" not in r["times"] and np.abs(wav).max() > 0):
+        raise AssertionError(f"onnx cli line: {n_done} lines, K1 {k1_onnx} "
+                             f"in {r['steps_run']} steps, {wav.shape}, "
+                             f"{sorted(r['times'])}")
+    import sys as _sys
+    had_tf = "tensorflow" in _sys.modules
+    saved_tf = _sys.modules.get("tensorflow")
+    _sys.modules["tensorflow"] = None
+    try:
+        TI.load_vocoder(str(root / "g.tflite"), None, dev)
+        raise AssertionError("the .tflite path ran without tensorflow")
+    except RuntimeError as e:
+        if "tensorflow is not installed" not in str(e):
+            raise
+    finally:
+        if had_tf:
+            _sys.modules["tensorflow"] = saved_tf
+        else:
+            del _sys.modules["tensorflow"]
+    report["onnx"] = {
+        "file_bytes": n_bytes, "mel_frames": 256,
+        "executor_ms": t_onnx * 1e3, "native_ms": t_native * 1e3,
+        "executor_vs_native": onnx_err, "cli_line": {
+            "steps": r["steps_run"], "k1_launches": k1_onnx,
+            "wall_ms": onnx_wall * 1e3,
+            **{f"{k}_ms": v * 1e3 for k, v in r["times"].items()}},
+        "tflite_without_tensorflow": "RuntimeError"}
+    print("vocoders onnx", json.dumps(report["onnx"]))
+
+    # 5. the tools
+    wavs = sorted((data / "wav").glob("*.wav"))
+    mel_dirs = {}
+    for name, d in (("card", str(dev)), ("cpu", "cpu")):
+        mel_dirs[name] = root / f"mels_{name}"
+        argv = ["mels", "--wav-dir", str(data / "wav"), "--out-dir",
+                str(mel_dirs[name]), "--device", d]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = TP.main(argv)
+        wall = time.perf_counter() - t0
+        if name == "card":
+            shutil.rmtree(mel_dirs[name])
+            t0 = time.perf_counter()
+            n = TP.main(argv)      # a second run: the constants are built
+            card_wall = time.perf_counter() - t0
+            first_wall = wall
+    mel_err = 0.0
+    for i in range(len(wavs)):
+        f = f"ljspeech-mel-{i + 1:05d}.npy"
+        mc, mh = np.load(mel_dirs["card"] / f), np.load(mel_dirs["cpu"] / f)
+        if mc.shape != mh.shape or mc.shape[0] != 80:
+            raise AssertionError(f"preprocess mels {f}: {mc.shape}")
+        mel_err = max(mel_err, float(np.abs(mc - mh).max()
+                                     / np.abs(mh).max()))
+    if n != len(wavs) or not mel_err <= MEL_TOL:
+        raise AssertionError(f"preprocess mels: {n} files, card vs CPU "
+                             f"{mel_err}")
+    script = root / "transcript.txt"
+    script.write_text(CLI_SCRIPT, encoding="utf-8")
+    tp = root / "tools"
+    counts = {
+        "phones": TP.main(["phones", "--transcript", str(script),
+                           "--out-dir", str(tp / "phones"), "--g2p-lexicon",
+                           a["lexicon"]]),
+        "subwords": TP.main(["subwords", "--transcript", str(script),
+                             "--sub-dir", str(tp / "sub"), "--cls-dir",
+                             str(tp / "cls"), "--vocab", "500"]),
+        "lists": TP.main(["lists", "--wav-dir", str(tp / "wav"), "--dur-dir",
+                          str(tp / "phones"), "--train-out",
+                          str(tp / "train.txt"), "--val-out",
+                          str(tp / "val.txt"), "--val-fraction", "0.25"])}
+    (tp / "wav").mkdir()
+    for i in range(4):
+        shutil.copy(wavs[i], tp / "wav" / f"{i}.wav")
+    counts["check_missing"] = TP.main(["check", str(tp / "train.txt")])
+    sub = np.load(tp / "sub" / "1.npy")
+    counts["phone_ids_u1"] = int(len(np.load(tp / "phones" / "1.npy")))
+    lex = a["lexicon"]
+    counts["phone_id_map"] = TDP.main(["--vi-lex", lex, "--en-lex", lex,
+                                       "--foreign-lex", lex, "--out",
+                                       str(tp / "phone_id_list.txt")])
+    rep = TCB.main(["--text", "anh banh an me ba em nam",
+                    "--fallback-vocabs", "5500", "6000", "7500"])
+    if not (counts["phones"] == counts["subwords"] == counts["lists"] == 4
+            and counts["check_missing"] == 0 and sub.dtype == np.int32
+            and ((sub >= 3) & (sub < 500)).all()
+            and counts["phone_id_map"] > 7 and len(rep["pairs"]) == 3):
+        raise AssertionError(f"tools: {counts}, {rep['pairs']}")
+
+    sent_s = []
+    real_sentence = TD.synthesize_sentence
+
+    def timed_sentence(syn, sent):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_sentence(syn, sent)
+        sent_s.append(time.perf_counter() - t)
+        return out
+    (root / "news.txt").write_text(DEMO_SENTENCES, encoding="utf-8")
+    TD.synthesize_sentence = timed_sentence
+    try:
+        Q.launches = 0
+        t0 = time.perf_counter()
+        demo_wav = TD.main([
+            "--text-file", str(root / "news.txt"), "--out",
+            str(root / "news.wav"), "--checkpoint-dir", a["ckpt_dir"],
+            "--g2p-lexicon", lex, "--hifigan-checkpoint", a["hifigan"],
+            "--hifigan-config", a["config"], "--max-decoder-steps",
+            str(CLI_STEPS), "--hparams",
+            "[decode_quant:int8-gate_threshold:1.1]", "--device", str(dev)])
+        demo_wall = time.perf_counter() - t0
+        k1_demo = Q.launches
+    finally:
+        TD.synthesize_sentence = real_sentence
+    sr, news = read(str(root / "news.wav"))
+    pause = int(TD.PAUSE_S * TD.SAMPLING_RATE)
+    if not (len(sent_s) == 3 and k1_demo == 2 * 3 * CLI_STEPS
+            and news.shape == (3 * (CLI_STEPS * 256 + pause),)
+            and len(demo_wav) == len(news) and np.abs(news).max() > 0):
+        raise AssertionError(f"demo: {len(sent_s)} sentences, K1 {k1_demo}, "
+                             f"{news.shape}")
+    report["tools"] = {
+        "preprocess_mels": {"wavs": len(wavs),
+                            "ms_per_wav": card_wall * 1e3 / len(wavs),
+                            "ms_per_wav_first_run": first_wall * 1e3
+                            / len(wavs),
+                            "card_vs_cpu": mel_err},
+        **counts, "check_bert_emb_pairs": rep["pairs"],
+        "demo": {"sentences": 3, "steps": CLI_STEPS, "k1_launches": k1_demo,
+                 "wall_s": demo_wall,
+                 "sentence_ms": [s * 1e3 for s in sent_s]}}
+    print("vocoders tools", json.dumps(report["tools"]))
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"vocoders and tools: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1_onnx": k1_onnx, "k1_demo": k1_demo}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2253,7 +2803,11 @@ def main() -> int:
     #    CLI line
     att, _ = phase_attention_variants(Q, SD, dev, gpu)
 
-    # 9. the kernels line: K1 per decoder step of the served batch (B=4,
+    # 9. WaveGlow (synthesis, training, reference import), the ONNX vocoder
+    #    (K1 counted on its CLI line) and the tool CLIs (K1 on the demo)
+    voc = phase_vocoders_and_tools(Q, dev, gpu)
+
+    # 10. the kernels line: K1 per decoder step of the served batch (B=4,
     #    bf16 x): the attention-LSTM call plus the decoder-LSTM call, and the
     #    same at B=128; K2 and K3 at the train step's shape, 8 x 128 x 128
     def k1_step(B):
@@ -2272,11 +2826,14 @@ def main() -> int:
     k1 = {"name": "dequant_int8_matmul", "route": "cuda",
           "source": "tacotron2_subword_tpu_torch/csrc/dequant_int8_matmul.cu",
           "replaces": "tacotron2_subword_tpu/ops/quant.py:74",
-          "launches": launches + cli_launches + after["k1"] + att["k1"],
+          "launches": (launches + cli_launches + after["k1"] + att["k1"]
+                       + voc["k1_onnx"] + voc["k1_demo"]),
           "launches_by_path": {"serve": launches, "cli": cli_launches,
                                "after_training_inference": after["k1_infer"],
                                "checkpoint_sweep": after["k1_sweep"],
-                               "attention_variants": att["k1"]},
+                               "attention_variants": att["k1"],
+                               "onnx_cli_line": voc["k1_onnx"],
+                               "demo": voc["k1_demo"]},
           "cli_launches": cli_launches,
           "max_abs_err": max(r["max_abs_err"] for r in k1_rows
                              if r["x"] == "bf16"),

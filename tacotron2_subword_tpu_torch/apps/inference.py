@@ -24,8 +24,11 @@ as 22050 Hz int16 wav under ``audio/``, with ``mels/``, ``alignment/`` and
 K1 twice (ops/quant.py).
 
 Checkpoints: the port's own ``checkpoint_{step}/`` directories
-(utils/checkpoint.py) and reference torch ``checkpoint_{iter}`` files.  The
-JAX package's Orbax directories and ONNX/TFLite vocoders are not read.
+(utils/checkpoint.py) and reference torch ``checkpoint_{iter}`` files.
+``--hifigan-checkpoint`` also takes ``.onnx`` files (run on the device by
+``utils/onnx_lite``) and ``.tflite`` files (tensorflow's interpreter); as in
+the JAX CLI, those are scaled by 32768 and not denoised.  The JAX package's
+Orbax directories are not read.
 
 ``synthesize`` is the batched serving core: pre-tokenised requests padded
 to one batch with their true lengths, decoded with per-sample gate stop and
@@ -164,13 +167,20 @@ def load_vocoder(hifigan_checkpoint: Optional[str],
                  device) -> Tuple[Vocoder, str]:
     """(vocode: mel [B, 80, T] → wav [B, T'], name) on ``device``: HiFi-GAN
     from a reference ``{'generator': state_dict}`` torch file (weight-normed
-    or fused) and its JSON config (v1 without one), fused for serving; or,
-    with no checkpoint, Griffin-Lim (BASELINE config 1)."""
-    if hifigan_checkpoint and hifigan_checkpoint.endswith((".onnx",
-                                                           ".tflite")):
-        raise NotImplementedError(
-            f"{hifigan_checkpoint}: ONNX/TFLite vocoders are not ported yet "
-            f"(ROADMAP Queue 1 item 5)")
+    or fused) and its JSON config (v1 without one), fused for serving
+    ("hifigan"); an ``.onnx`` file through the port's executor on
+    ``device`` ("hifigan-onnx", reference inference.py:208-223); a
+    ``.tflite`` file through tensorflow's interpreter ("hifigan-tflite",
+    reference best_checkpoint.py:230-260); or, with no checkpoint,
+    Griffin-Lim (BASELINE config 1)."""
+    if hifigan_checkpoint and hifigan_checkpoint.endswith(".onnx"):
+        from tacotron2_subword_tpu_torch.models.vocoder_runtimes import \
+            load_onnx_vocoder
+        return load_onnx_vocoder(hifigan_checkpoint, device), "hifigan-onnx"
+    if hifigan_checkpoint and hifigan_checkpoint.endswith(".tflite"):
+        from tacotron2_subword_tpu_torch.models.vocoder_runtimes import \
+            load_tflite_vocoder
+        return load_tflite_vocoder(hifigan_checkpoint), "hifigan-tflite"
     if hifigan_checkpoint and os.path.isdir(hifigan_checkpoint):
         raise NotImplementedError(
             f"{hifigan_checkpoint}: Orbax generator directories of the JAX "
@@ -299,6 +309,8 @@ def synthesize_text(syn: Synthesizer, text: str) -> Dict[str, Any]:
 
     wav = vocode_bucketed(syn.vocode, out["mel_postnet"], [n],
                           hop=cfg.hop_length)[0][None]
+    # as the JAX CLI: only the native HiFi-GAN is scaled by 32768 * 1.7 and
+    # denoised; the exported ones, like Griffin-Lim, by 32768
     if syn.vocoder_name == "hifigan":
         wav = wav * MAX_WAV_VALUE
         sync()

@@ -138,14 +138,20 @@ def conv_transpose1d_apply(p, x: torch.Tensor, stride: int,
 
 # -- Weight norm --------------------------------------------------------------
 
-def fuse_weight_norm(p):
-    """Collapse {v, g} into a direct weight w = g * v / ||v|| (torch
-    remove_weight_norm), the norm over every dim but 0."""
+def weight_norm_weight(p, dim: int = 0) -> torch.Tensor:
+    """w = g * v / ||v||, the norm over every dim but ``dim`` (torch
+    weight_norm); differentiable in ``v`` and ``g``."""
     v, g = p["v"], p["g"]
-    norm = torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())),
-                                keepdim=True))
+    axes = tuple(i for i in range(v.dim()) if i != dim)
+    norm = torch.sqrt(torch.sum(v * v, dim=axes, keepdim=True))
+    return g * v / torch.clamp_min(norm, 1e-12)
+
+
+def fuse_weight_norm(p):
+    """Collapse {v, g} into a direct weight ``w`` (torch
+    remove_weight_norm), the norm over every dim but 0."""
     out = {k: t for k, t in p.items() if k not in ("v", "g")}
-    out["w"] = g * v / torch.clamp_min(norm, 1e-12)
+    out["w"] = weight_norm_weight(p)
     return out
 
 

@@ -17,6 +17,7 @@ reference does (inference.py:351-353).
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -87,3 +88,15 @@ def hashed_subword_ids(text: str, vocab_size: int) -> np.ndarray:
     return np.asarray(
         [zlib.crc32(w.encode("utf-8")) % max(vocab_size - 3, 1) + 3
          for w in words], np.int32)
+
+
+def packaged_tokenizer_path() -> Optional[str]:
+    """Path of the trained tokenizer shipped with the package
+    (``assets/vibert_512.json``, a copy of the JAX package's asset, trained
+    by tools/train_tokenizer.py over the Vietnamese syllable lexicon), or
+    None if the package was installed without its data files.  The
+    reference ships its equivalents as data/vibert_{5500..7500}.json
+    (reference check_bert_emb.py:24-33)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets", "vibert_512.json")
+    return path if os.path.exists(path) else None

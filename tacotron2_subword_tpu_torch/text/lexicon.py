@@ -104,3 +104,11 @@ def build_character_id_map(letters: str, other_symbols: Sequence[str] = ()
     symbols = list(letters) + list(other_symbols)
     return ({s: i for i, s in enumerate(symbols)},
             {i: s for i, s in enumerate(symbols)})
+
+
+def dump_phone_id_file(phone_to_id: Dict[str, int], path: str) -> None:
+    """Write the map as ``phone\tid`` lines in ID order (the format
+    ``load_phone_id_file`` reads)."""
+    with open(path, "w", encoding="utf-8") as f:
+        for phone, pid in sorted(phone_to_id.items(), key=lambda kv: kv[1]):
+            f.write(f"{phone}\t{pid}\n")

@@ -24,6 +24,7 @@ import torch
 from tacotron2_subword_tpu_torch.config import TacotronConfig
 from tacotron2_subword_tpu_torch.models.hifigan import (
     PERIOD_DISC_CHANNELS, PERIODS, SCALE_DISC_SPEC, HifiganConfig)
+from tacotron2_subword_tpu_torch.models.waveglow import WaveGlowConfig
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 from tacotron2_subword_tpu_torch.utils.tree import tree_map
 
@@ -155,3 +156,39 @@ def optax_adam_state_from_numpy(opt_state, params, device="cuda"):
                          f"!= Adam count {int(np.asarray(adam.count))}")
     return adam_state_from_numpy(adam.count, adam.mu, adam.nu, params,
                                  device=device)
+
+
+def waveglow_params_from_numpy(params, cfg: WaveGlowConfig, device="cuda"):
+    """WaveGlow params of the JAX package (``init_waveglow``'s tree, or
+    ``import_torch_waveglow``'s, weight-normed or fused), as a numpy tree ->
+    the port's params on ``device``, each flow's widths checked against
+    ``cfg``."""
+    device = resolve_device(device)
+    p = _tensors(params, device)
+    M, C, L = cfg.n_mel_channels, cfg.wn_channels, cfg.wn_layers
+    _expect("upsample.w", p["upsample"]["w"], (M, M, cfg.upsample_kernel))
+    if len(p["convinv"]) != cfg.n_flows or len(p["wn"]) != cfg.n_flows:
+        raise ValueError(f"{len(p['convinv'])} convinv / {len(p['wn'])} WN, "
+                         f"expected {cfg.n_flows} flows")
+
+    def weight(q):
+        return q["w"] if "w" in q else q["v"]
+
+    n_rem = cfg.n_group
+    for k, (inv, wn) in enumerate(zip(p["convinv"], p["wn"])):
+        if k % cfg.n_early_every == 0 and k > 0:
+            n_rem -= cfg.n_early_size
+        _expect(f"convinv.{k}.w", inv["w"], (n_rem, n_rem))
+        _expect(f"wn.{k}.start", weight(wn["start"]), (C, n_rem // 2, 1))
+        _expect(f"wn.{k}.end", weight(wn["end"]), (2 * (n_rem // 2), C, 1))
+        _expect(f"wn.{k}.cond", weight(wn["cond"]),
+                (2 * C * L, M * cfg.n_group, 1))
+        if len(wn["in_layers"]) != L or len(wn["res_skip"]) != L:
+            raise ValueError(f"wn.{k}: {len(wn['in_layers'])} layers, "
+                             f"expected {L}")
+        for i in range(L):
+            _expect(f"wn.{k}.in_layers.{i}", weight(wn["in_layers"][i]),
+                    (2 * C, C, cfg.wn_kernel_size))
+            _expect(f"wn.{k}.res_skip.{i}", weight(wn["res_skip"][i]),
+                    (2 * C if i < L - 1 else C, C, 1))
+    return p

@@ -11,7 +11,8 @@ its shapes against the config and moves it to the device.
 
 Each attention variant reads its own keys.  ContentAttention reads its
 ``query_layer`` and ``v`` (LinearNorm), which the JAX package's importer
-leaves out.
+leaves out.  ``waveglow_params_from_torch_state_dict`` reads the three
+WaveGlow layouts of the reference.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ import torch
 from tacotron2_subword_tpu_torch.config import TacotronConfig
 from tacotron2_subword_tpu_torch.models.attention import (READS_WEIGHTS,
                                                           _check_variant)
-from tacotron2_subword_tpu_torch.utils.import_jax import \
-    tacotron2_params_from_numpy
+from tacotron2_subword_tpu_torch.models.waveglow import WaveGlowConfig
+from tacotron2_subword_tpu_torch.nn.layers import weight_norm_weight
+from tacotron2_subword_tpu_torch.utils.import_jax import (
+    tacotron2_params_from_numpy, waveglow_params_from_numpy)
 
 
 def _a(sd: Mapping[str, Any], key: str) -> np.ndarray:
@@ -172,3 +175,75 @@ def load_torch_checkpoint(path: str, cfg: TacotronConfig, device="cuda"):
     meta = {k: ckpt[k] for k in ("iteration", "val_loss", "learning_rate")
             if k in ckpt}
     return params, bn_state, meta
+
+
+def waveglow_params_from_torch_state_dict(sd: Mapping[str, Any],
+                                          cfg: WaveGlowConfig,
+                                          device="cuda"):
+    """A reference WaveGlow state dict (tensors or numpy arrays; the
+    reference saves whole model objects, waveglow/train.py:52-60, so take
+    their ``.state_dict()``) -> the port's params on ``device``, as the JAX
+    package's ``import_torch_waveglow``.  Three layouts are read:
+     - the fused per-WN ``cond_layer`` and ``res_skip_layers``
+       (reference glow.py:119-152);
+     - the vendored one's per-layer ``cond_layers.{i}``
+       (waveglow/glow.py:119-152), concatenated along the output channels
+       in layer order, the slices ``_wn_apply`` takes;
+     - the old split ``res_layers`` / ``skip_layers`` with per-layer
+       ``cond_layers.{i}`` (waveglow/glow_old.py:30-64, convert_model.py:
+       11-38): res and skip rows concatenated per layer, the last layer
+       having no res conv.
+    torch's weight norm is per output row, so concatenating v / g / b rows
+    is exact.  A missing key raises KeyError."""
+    def wn_conv(prefix):
+        if f"{prefix}.weight_v" in sd:
+            return {"v": _a(sd, f"{prefix}.weight_v"),
+                    "g": _a(sd, f"{prefix}.weight_g"),
+                    "b": _a(sd, f"{prefix}.bias")}
+        return {"w": _a(sd, f"{prefix}.weight"), "b": _a(sd, f"{prefix}.bias")}
+
+    def fused(c):
+        if "w" in c:
+            return c["w"]
+        return weight_norm_weight({k: torch.from_numpy(c[k])
+                                   for k in ("v", "g")}).numpy()
+
+    def concat(convs):
+        if all("v" in c for c in convs):
+            return {k: np.concatenate([c[k] for c in convs])
+                    for k in ("v", "g", "b")}
+        return {"w": np.concatenate([fused(c) for c in convs]),
+                "b": np.concatenate([c["b"] for c in convs])}
+
+    def has(prefix):
+        return f"{prefix}.weight_v" in sd or f"{prefix}.weight" in sd
+
+    def cond(k):
+        if has(f"WN.{k}.cond_layer"):
+            return wn_conv(f"WN.{k}.cond_layer")
+        return concat([wn_conv(f"WN.{k}.cond_layers.{i}")
+                       for i in range(cfg.wn_layers)])
+
+    def res_skip(k, i):
+        if has(f"WN.{k}.res_skip_layers.{i}"):
+            return wn_conv(f"WN.{k}.res_skip_layers.{i}")
+        skip = wn_conv(f"WN.{k}.skip_layers.{i}")
+        if i < cfg.wn_layers - 1:
+            return concat([wn_conv(f"WN.{k}.res_layers.{i}"), skip])
+        return skip
+
+    params = {"upsample": {"w": _a(sd, "upsample.weight"),
+                           "b": _a(sd, "upsample.bias")},
+              "convinv": [], "wn": []}
+    for k in range(cfg.n_flows):
+        params["convinv"].append(
+            {"w": _a(sd, f"convinv.{k}.conv.weight")[:, :, 0]})
+        params["wn"].append({
+            "start": wn_conv(f"WN.{k}.start"),
+            "end": {"w": _a(sd, f"WN.{k}.end.weight"),
+                    "b": _a(sd, f"WN.{k}.end.bias")},
+            "cond": cond(k),
+            "in_layers": [wn_conv(f"WN.{k}.in_layers.{i}")
+                          for i in range(cfg.wn_layers)],
+            "res_skip": [res_skip(k, i) for i in range(cfg.wn_layers)]})
+    return waveglow_params_from_numpy(params, cfg, device=device)

@@ -186,9 +186,18 @@ def test_cli_needs_cuda_unless_told_cpu(assets, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["g.onnx", "g.tflite", "orbax_dir"])
-def test_unported_vocoder_formats_raise(tmp_path, name):
+def test_unported_vocoder_formats_raise(tmp_path, name, monkeypatch):
+    """Orbax generator directories are not read (ROADMAP Queue 1 item 8);
+    an .onnx path is opened (a missing file raises), and a .tflite one
+    needs tensorflow."""
     path = tmp_path / name
     if name == "orbax_dir":
         path.mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        err, match = NotImplementedError, "ROADMAP"
+    elif name == "g.onnx":
+        err, match = FileNotFoundError, "g.onnx"
+    else:
+        monkeypatch.setitem(__import__("sys").modules, "tensorflow", None)
+        err, match = RuntimeError, "tensorflow is not installed"
+    with pytest.raises(err, match=match):
         TI.load_vocoder(str(path), None, "cpu")

@@ -30,21 +30,29 @@ def test_port_has_the_slice_modules():
                  "models.denoiser", "utils.import_torch", "utils.checkpoint",
                  "utils.logging_utils", "ops.ssim", "eval", "eval.metrics",
                  "apps.gta", "apps.train_hifigan", "apps.best_checkpoint",
-                 "apps.evaluation", "apps.remove_silence", "utils.audio"):
+                 "apps.evaluation", "apps.remove_silence", "utils.audio",
+                 "models.waveglow", "apps.train_waveglow", "utils.onnx_lite",
+                 "models.vocoder_runtimes", "tools.export_hifigan_onnx",
+                 "apps.preprocess", "apps.demo", "apps.check_bert_emb",
+                 "apps.dump_phone_id_map"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
-    # the G2P engine is built from the port's own copy of the C++ source
+    # the G2P engine is built from the port's own copy of the C++ source,
+    # check_bert_emb's default tokenizer is the port's own copy of the asset
     assert (ROOT / "tacotron2_subword_tpu_torch" / "native"
             / "g2p_fst.cpp").is_file()
+    assert (ROOT / "tacotron2_subword_tpu_torch" / "assets"
+            / "vibert_512.json").is_file()
 
 
 @pytest.mark.parametrize("module,lazy", [
     ("text.g2p", "yaml"), ("utils.logging_utils", "matplotlib"),
     ("utils.logging_utils", "tensorboardX"), ("text.bert", "tokenizers"),
-    ("text.bert", "transformers")])
+    ("text.bert", "transformers"), ("models.vocoder_runtimes", "tensorflow"),
+    ("apps.check_bert_emb", "tokenizers"), ("apps.demo", "streamlit")])
 def test_optional_packages_load_only_when_used(module, lazy):
     """The card's machine may lack PyYAML, matplotlib, tensorboardX,
-    tokenizers and transformers: importing the modules that use them loads
-    none of them."""
+    tokenizers, transformers, tensorflow and streamlit: importing the
+    modules that use them loads none of them."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('tacotron2_subword_tpu_torch.{module}')\n"
