@@ -50,10 +50,19 @@ the port at full width:
    train_waveglow with checkpoints and resume), the ONNX HiFi-GAN (the
    port's exporter, its executor on the card against the native generator,
    one int8 CLI line with K1 counted), and preprocess, dump_phone_id_map,
-   check_bert_emb and the demo (int8, K1 counted).
+   check_bert_emb and the demo (int8, K1 counted);
+ - multi-rank training (``phase_multi_rank``): the training CLI under
+   torch.distributed.run on one NCCL rank against the plain CLI, then
+   meshes (2, 1), (1, 2) and (2, 2) of ranks sharing the card over one gloo
+   group, each held to the single-process step (loss, gradients, BN
+   statistics), with K2 and K3 counted on every rank, per-rank peak memory
+   and the stored bytes of the model-axis slices.
 
 ``python3 chip_smoke.py --k1-splits`` builds the kernels and times K1 at
-every number of K splits instead (the table behind ``ops/quant.k1_plan``).
+every number of K splits instead (the table behind ``ops/quant.k1_plan``);
+``--cli-nondeterminism`` runs the training CLI of ``phase_multi_rank``
+twice with PyTorch's default algorithms and prints how far its losses
+move run to run.
 
 Any failure raises, so the exit code is not 0.  The line before the last
 names the card and its power limit; the last is one JSON object naming the
@@ -62,6 +71,7 @@ device.  Without a card it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -2721,6 +2731,355 @@ def phase_vocoders_and_tools(Q, dev, gpu):
     return {"k1_onnx": k1_onnx, "k1_demo": k1_demo}
 
 
+MR_HPARAMS = "[softdtw_loss_weight:1.0-parity_mode:true]"
+MR_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+MR_LOSS_RE = r"iter (\d+): loss ([\d.eE+-]+) grad_norm \S+ ([\d.]+)s/it"
+
+
+def _stored_bytes(state):
+    """Bytes of the params and Adam moments a rank stores."""
+    from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(
+        (state.params, state.opt_state.mu, state.opt_state.nu)))
+
+
+def _grad_errors(grads, ref):
+    """Per leaf, max|d| over max|g_ref| of the leaf, that max floored at
+    1e-3 of the tree's (a conv bias that feeds a training-mode BatchNorm has
+    a true gradient of 0: rounding noise on both sides)."""
+    from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
+    refs = tree_leaves(ref)
+    floor = 1e-3 * max(r.abs().max().item() for r in refs)
+    return [(a - r).abs().max().item() / max(r.abs().max().item(), floor)
+            for a, r in zip(tree_leaves(grads), refs)]
+
+
+def multi_rank_worker(rank, world, store, out_dir, dev_name, cfg_fields):
+    """One rank of a gloo group on ``dev_name`` (several ranks share the
+    card): for each mesh of MR_MESHES[world], on the global batch
+    (train_batch, B=8, T_out=128; its last row a repeat with weight 0):
+    loss_and_grads, loss_and_grads with the soft-DTW weight 0, train_step
+    and eval_step, K2 / K3 counted.  Rank 0 first runs the same calls in
+    one process (no mesh) with the same seeds and holds each mesh to them:
+    every loss and eval loss 1e-5 relative, BN statistics 1e-5, the
+    gradients without the soft-DTW term 1e-4 of each leaf's max.  With the
+    soft-DTW term the single-process gradients themselves move by ~1e-3
+    of a leaf's max when the last BatchNorm's params move by 1e-7
+    (``sensitivity``, measured here): the soft-DTW gradient at T_out=128 on
+    random weights is that ill-conditioned, so those gradients and the
+    grad_norm are held to 5e-3 (``phase_train_parity``'s bound for the
+    same term).  The full state stays on the host: the card holds a rank's
+    stored slices and its step only, so the per-rank peak memory is the
+    mesh's.  Writes its rows to out_dir/rank{rank}.json."""
+    import os
+    from datetime import timedelta
+    import torch.distributed as dist
+    from tacotron2_subword_tpu_torch import train_lib as TT
+    from tacotron2_subword_tpu_torch.config import TacotronConfig
+    from tacotron2_subword_tpu_torch.ops import softdtw as SD
+    from tacotron2_subword_tpu_torch.parallel import mesh as PM
+    from tacotron2_subword_tpu_torch.utils.tree import (to_device, tree_leaves,
+                                                        tree_map)
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    peak = ((lambda: torch.cuda.max_memory_allocated(dev))
+            if dev.type == "cuda" else (lambda: 0))
+    reset = ((lambda: torch.cuda.reset_peak_memory_stats(dev))
+             if dev.type == "cuda" else (lambda: None))
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=300))
+    try:
+        cfg = TacotronConfig(**cfg_fields)
+        cfg0 = cfg.replace(softdtw_loss_weight=0.0)
+        state, tx = TT.create_train_state(torch.Generator().manual_seed(0),
+                                          cfg, device="cpu")
+        batch = train_batch(cfg, dev)
+        batch["weight"] = torch.ones(TRAIN_B, device=dev)
+        batch["weight"][-1] = 0.0
+        gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+
+        def run(mesh, plan, sharded, local):
+            kw = dict(mesh=mesh, plan=plan)
+            losses, grads, bn = TT.loss_and_grads(
+                sharded, local, cfg, generator=gen(4), **kw)
+            grads0 = TT.loss_and_grads(sharded, local, cfg0,
+                                       generator=gen(4), **kw)[1]
+            _, m = TT.train_step(sharded, local, cfg, tx, generator=gen(5),
+                                 **kw)
+            ev, _ = TT.eval_step(sharded, local, cfg, generator=gen(6), **kw)
+            return {"losses": losses, "grads": grads, "grads0": grads0,
+                    "bn": bn, "metrics": m, "eval": ev}
+
+        cpu = lambda tree: to_device(tree, "cpu")
+        ref = None
+        if rank == 0:
+            full = to_device(state, dev)
+            sync()
+            reset()
+            t0 = time.perf_counter()
+            ref = run(None, None, full, batch)
+            sync()
+            ref["wall_s"] = time.perf_counter() - t0
+            ref["peak_mem_bytes"] = peak()
+            ref["stored_bytes"] = _stored_bytes(full)
+            post = [dict(l) for l in full.params["postnet"]]
+            post[-1] = {**post[-1], "bn": tree_map(
+                lambda t: t * (1 + 1e-7), post[-1]["bn"])}
+            moved = TT.loss_and_grads(
+                full._replace(params={**full.params, "postnet": post}),
+                batch, cfg, generator=gen(4))[1]
+            ref["sensitivity"] = max(_grad_errors(moved, ref["grads"]))
+            ref = cpu(ref)
+            del full, moved
+        rows = []
+        for n_data, n_model in MR_MESHES[world]:
+            mesh = PM.make_mesh(n_data, n_model, group=dist.group.WORLD)
+            plan = PM.tacotron_param_sharding(state.params, mesh)
+            sharded = to_device(PM.shard_train_state(state, mesh), dev)
+            local = PM.shard_batch(batch, mesh)
+            PM.collective_barrier(mesh)
+            sync()
+            reset()
+            SD.grad_launches = SD.fwd_launches = 0
+            t0 = time.perf_counter()
+            out = run(mesh, plan, sharded, local)
+            sync()
+            wall = time.perf_counter() - t0
+            k2, k3 = SD.grad_launches, SD.fwd_launches
+            row = {"mesh": [n_data, n_model], "rank": rank,
+                   "coords": [mesh.data, mesh.model], "wall_s": wall,
+                   "k2_launches": k2, "k3_launches": k3,
+                   "peak_mem_bytes": peak(),
+                   "stored_bytes": _stored_bytes(sharded),
+                   "loss": out["losses"]["total"].item(),
+                   "eval_total": out["eval"]["total"].item()}
+            # (the CPU runs the plain versions: no launch to count)
+            if dev.type == "cuda" and (k2 != 2 or k3 != 1):
+                raise AssertionError(f"rank {rank} {row['mesh']}: K2 {k2} "
+                                     f"(want 2), K3 {k3} (want 1)")
+            if ref is not None:
+                out = cpu(out)
+                rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+                row["loss_rel_err"] = max(
+                    rel(out[key][k].item(), ref[key][k].item())
+                    for key in ("losses", "eval") for k in ref[key])
+                row["train_total_rel_err"] = rel(
+                    out["metrics"]["total"].item(),
+                    ref["metrics"]["total"].item())
+                row["grad_norm_rel_err"] = rel(
+                    out["metrics"]["grad_norm"].item(),
+                    ref["metrics"]["grad_norm"].item())
+                row["grad_err_no_softdtw"] = max(
+                    _grad_errors(out["grads0"], ref["grads0"]))
+                row["grad_err"] = max(_grad_errors(out["grads"],
+                                                   ref["grads"]))
+                row["bn_err_max"] = max(
+                    (a - b).abs().max().item()
+                    / max(b.abs().max().item(), 1.0)
+                    for a, b in zip(tree_leaves(out["bn"]),
+                                    tree_leaves(ref["bn"])))
+                if not (row["loss_rel_err"] <= 1e-5
+                        and row["train_total_rel_err"] <= 1e-5
+                        and row["grad_err_no_softdtw"] <= 1e-4
+                        and row["grad_err"] <= 5e-3
+                        and row["grad_norm_rel_err"] <= 5e-3
+                        and row["bn_err_max"] <= 1e-5):
+                    raise AssertionError(f"multi-rank {row['mesh']} against "
+                                         f"the single-process step: {row}")
+                row["single_process"] = {k: ref[k] for k in (
+                    "wall_s", "peak_mem_bytes", "stored_bytes",
+                    "sensitivity")}
+            rows.append(row)
+            del sharded, out
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rows, f)
+        PM.collective_barrier(PM.make_mesh(group=dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world, out_dir, dev_name, cfg_fields, timeout_s=300):
+    """Runs multi_rank_worker on ``world`` ranks (spawned, a file store in
+    out_dir); a rank that raises or exits non-zero, or a run past
+    ``timeout_s``, raises here (the ranks are killed)."""
+    import os
+    import torch.multiprocessing as mp
+    store = os.path.join(out_dir, f"store{world}")
+    ctx = mp.start_processes(multi_rank_worker,
+                             args=(world, store, out_dir, dev_name,
+                                   cfg_fields),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks ran past {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    rows = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            rows += json.load(f)
+    return rows
+
+
+# the training CLI's entry point with cuDNN's and torch's deterministic
+# algorithms on: run to run, the default ones move the third iteration's
+# loss by a few 1e-6 relative, which would hide what the NCCL path changes
+DETERMINISTIC_TRAIN = (
+    "import sys, torch; torch.backends.cudnn.deterministic = True; "
+    "torch.backends.cudnn.benchmark = False; "
+    "torch.use_deterministic_algorithms(True, warn_only=True); "
+    "from tacotron2_subword_tpu_torch.apps import train; "
+    "train.main(sys.argv[1:])")
+
+
+def _train_cli_run(argv, env, multihost, deterministic=True):
+    """The training CLI (``apps.train.main``) as a subprocess, under
+    torch.distributed.run with one rank and --multihost when
+    ``multihost``: (losses, s/it per iteration, process wall s)."""
+    import re
+    entry = (["-c", DETERMINISTIC_TRAIN] if deterministic
+             else ["-m", "tacotron2_subword_tpu_torch.apps.train"])
+    cmd = [sys.executable, *entry, *argv]
+    if multihost:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=1", "--no-python", *cmd, "--multihost"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                       timeout=400)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"train CLI (multihost={multihost}) exited "
+                             f"{r.returncode}: {r.stdout[-2000:]} "
+                             f"{r.stderr[-3000:]}")
+    found = re.findall(MR_LOSS_RE, r.stdout)
+    return ([float(l) for _, l, _ in found], [float(s) for _, _, s in found],
+            wall)
+
+
+def _mr_cli(root, hparams=MR_HPARAMS, device_args=()):
+    """(environment, argv(out dir name)) of phase_multi_rank's CLI runs:
+    --synthetic 32, 3 iterations at batch 8, f32 with TF32 off."""
+    import os
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    argv = lambda out: ["-o", str(root / out), "--synthetic", "32",
+                        "--max-iters", "3", "--batch-size", str(TRAIN_B),
+                        "--prefetch", "0", "--hparams", hparams,
+                        *device_args]
+    return env, argv
+
+
+def cli_nondeterminism(gpu):
+    """``--cli-nondeterminism``: phase_multi_rank's plain CLI run twice
+    with PyTorch's default (nondeterministic) algorithms: how far its
+    losses move run to run."""
+    import shutil
+    from pathlib import Path
+    root = Path(__file__).resolve().parent / "_runs" / "cli_nondeterminism"
+    shutil.rmtree(root, ignore_errors=True)
+    env, argv = _mr_cli(root)
+    runs = [_train_cli_run(argv(f"run{i}"), env, False, deterministic=False)
+            for i in range(2)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs[0][0], runs[1][0])]
+    print("train CLI, default algorithms, run to run:", json.dumps({
+        "losses": [r[0] for r in runs], "rel_diff_per_iteration": rel,
+        "gpu": gpu}))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_multi_rank(dev, gpu, cfg_fields=None, hparams=MR_HPARAMS,
+                     device_args=()):
+    """Multi-rank training (``parallel/mesh.py``) at full width, f32, TF32
+    off, soft-DTW weight 1.0.  (a) The training CLI under
+    torch.distributed.run with one NCCL rank (--multihost) against the same
+    command without it, both with deterministic algorithms
+    (``DETERMINISTIC_TRAIN``): 3 iterations of --synthetic 32 at batch 8,
+    the losses to 1e-6 relative.  (b) Ranks that share the card over one gloo
+    group (spawned here, the group passed to make_mesh): meshes (2, 1) and
+    (1, 2) on 2 ranks, (2, 2) on 4, each one train step (loss_and_grads
+    and train_step) and one eval step of the global batch B=8, T_out=128,
+    held to the single-process step (``multi_rank_worker``); K2 and K3
+    counted on every rank.
+    Returns {k2, k3: the launches summed over every rank and mesh,
+    k2_per_rank, k3_per_rank: by mesh}."""
+    import os
+    import shutil
+    from pathlib import Path
+    from tacotron2_subword_tpu_torch.config import TacotronConfig
+    root = Path(__file__).resolve().parent / "_runs" / "multi_rank"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env, argv = _mr_cli(root, hparams, device_args)
+    plain, plain_s, plain_wall = _train_cli_run(argv("plain"), env, False)
+    multi, multi_s, multi_wall = _train_cli_run(argv("nccl"), env, True)
+    if len(plain) != 3 or len(multi) != 3:
+        raise AssertionError(f"train CLI: {plain} / {multi} losses")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(multi, plain))
+    if rel > 1e-6:
+        raise AssertionError(f"one NCCL rank {multi} against the plain CLI "
+                             f"{plain}: {rel} relative")
+    cli = {"losses_plain": plain, "losses_nccl_1_rank": multi,
+           "max_rel_err": rel,
+           "s_per_it_plain": plain_s, "s_per_it_nccl_1_rank": multi_s,
+           "s_per_step_plain_iters_2_3": sum(plain_s[1:]) / 2,
+           "s_per_step_nccl_iters_2_3": sum(multi_s[1:]) / 2,
+           "process_wall_s": [plain_wall, multi_wall], "gpu": gpu}
+    print("multi-rank (a) train CLI, one NCCL rank vs plain:",
+          json.dumps(cli))
+
+    # the phone vocabulary padded to 314 rows so that the model axis can
+    # split it (313 is odd; JAX's mesh tests pad theirs the same way)
+    fields = cfg_fields or dataclasses.asdict(TacotronConfig(
+        softdtw_loss_weight=1.0, parity_mode=True, n_symbols=314))
+    rows = []
+    for world in (2, 4):
+        out = root / f"world{world}"
+        out.mkdir()
+        rows += _spawn_ranks(world, str(out), str(dev), fields)
+    for row in rows:
+        print("multi-rank (b)", json.dumps({**row, "gpu": gpu}))
+    single = next(r["single_process"] for r in rows if "single_process" in r)
+    at = lambda mesh: [r for r in rows if r["mesh"] == list(mesh)]
+    summary = {
+        "k2_launches_per_rank": {str(m): [r["k2_launches"] for r in at(m)]
+                                 for w in MR_MESHES.values() for m in w},
+        "k3_launches_per_rank": {str(m): [r["k3_launches"] for r in at(m)]
+                                 for w in MR_MESHES.values() for m in w},
+        "stored_bytes_1x1": single["stored_bytes"],
+        "stored_bytes_1x2_per_rank": [r["stored_bytes"] for r in at((1, 2))],
+        "peak_mem_bytes_1x1": single["peak_mem_bytes"],
+        "peak_mem_bytes_1x2_per_rank": [r["peak_mem_bytes"]
+                                        for r in at((1, 2))],
+        "peak_mem_bytes_2x2_per_rank": [r["peak_mem_bytes"]
+                                        for r in at((2, 2))],
+        "wall_s_1x1": single["wall_s"],
+        "wall_s_per_mesh": {str(m): max(r["wall_s"] for r in at(m))
+                            for w in MR_MESHES.values() for m in w},
+        "worst_vs_single": {k: max(r[k] for r in rows if k in r) for k in (
+            "loss_rel_err", "train_total_rel_err", "grad_norm_rel_err",
+            "grad_err_no_softdtw", "grad_err", "bn_err_max")},
+        "single_process_sensitivity": single["sensitivity"],
+        "gpu": gpu}
+    print("multi-rank summary", json.dumps(summary))
+    shutil.rmtree(root, ignore_errors=True)
+    return {"k2": sum(r["k2_launches"] for r in rows),
+            "k3": sum(r["k3_launches"] for r in rows),
+            "k2_per_rank": summary["k2_launches_per_rank"],
+            "k3_per_rank": summary["k3_launches_per_rank"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2751,6 +3110,14 @@ def main() -> int:
         print(f"build {name}: {len(used)} kernels; ptxas: {sorted(set(used))}")
     print(f"build: {build_s:.2f} s; torch {torch.__version__} "
           f"(CUDA {torch.version.cuda}); gpu: {gpu}")
+
+    if "--cli-nondeterminism" in sys.argv[1:]:
+        cli_nondeterminism(gpu)
+        print(gpu)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if "--k1-splits" in sys.argv[1:]:
         k1_split_sweep(Q, dev)
@@ -2807,7 +3174,13 @@ def main() -> int:
     #    (K1 counted on its CLI line) and the tool CLIs (K1 on the demo)
     voc = phase_vocoders_and_tools(Q, dev, gpu)
 
-    # 10. the kernels line: K1 per decoder step of the served batch (B=4,
+    # 10. multi-rank training (parallel/mesh.py): the training CLI on one
+    #     NCCL rank against the plain CLI, then meshes (2,1), (1,2), (2,2)
+    #     of ranks sharing the card over gloo against the single-process
+    #     step, K2 and K3 counted on every rank
+    mr = phase_multi_rank(dev, gpu)
+
+    # 11. the kernels line: K1 per decoder step of the served batch (B=4,
     #    bf16 x): the attention-LSTM call plus the decoder-LSTM call, and the
     #    same at B=128; K2 and K3 at the train step's shape, 8 x 128 x 128
     def k1_step(B):
@@ -2873,11 +3246,14 @@ def main() -> int:
                          if key == "k2" else
                          "tacotron2_subword_tpu/ops/softdtw.py:507"),
             "launches": (step_launches + real_launches + eval_launches
-                         + att_launches),
+                         + att_launches + mr[key]),
             "launches_by_path": {"train_step": step_launches,
                                  "train_cli_real_data": real_launches,
                                  "evaluation": eval_launches,
-                                 "attention_variants": att_launches},
+                                 "attention_variants": att_launches,
+                                 "multi_rank": mr[key],
+                                 "multi_rank_per_rank_by_mesh":
+                                     mr[f"{key}_per_rank"]},
             "max_abs_err": max(errs + ([r["max_abs_err"]
                                         for r in after["k3_shapes"]]
                                        if key == "k3" else [])),

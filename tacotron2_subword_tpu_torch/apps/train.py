@@ -7,6 +7,12 @@ reference train.py:188-439).
         [--hparams "[k:v-k:v]"] [--batch-size 8] [--prefetch 2] \
         [--profile-dir dir] [--max-iters N] [--device cpu]
 
+On several cards, one process per card:
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m tacotron2_subword_tpu_torch.apps.train --multihost \
+        [--model-parallel M] -o outdir ...
+
 or ``--synthetic N`` in place of the file lists (generated utterances
 with the real pipeline's shapes).  Length-bucketed batches go to the card
 by a pinned, non-blocking copy in a prefetch thread (``--prefetch 0``:
@@ -25,9 +31,20 @@ restarts its key: a resumed run does not replay a straight run's draws.
 ``-c path --warm_start`` loads params and BN statistics only, keeping
 ``cfg.ignore_layers`` fresh.
 
-Left out: ``--multihost`` and ``--model-parallel`` (the JAX mesh; DDP is
-ROADMAP Queue 1 item 7), ``--aot-warmup`` and the compile plan (XLA
-compile-budget tools; PyTorch compiles nothing per bucket shape).
+``--multihost`` initializes ``torch.distributed`` from the torchrun
+environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL
+on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``.  The JAX CLI runs one
+process per host over all its devices; here it is one process per card.
+The ranks form a (data, model) mesh (``parallel.mesh``) with
+``--model-parallel`` ranks on the model axis: ``--batch-size`` is per data
+rank, so the global batch is batch-size x n_data, and every rank's loader
+forms the same global batches and keeps its rows.  N ranks compute what
+one process computes on the global batch.  Rank (0, 0) prints, writes the
+checkpoints (the full state, in the one-file format) and the logs; every
+rank loads a checkpoint and keeps its slices.
+
+Left out: ``--aot-warmup`` and the compile plan (XLA compile-budget tools;
+PyTorch compiles nothing per bucket shape).
 """
 
 from __future__ import annotations
@@ -39,11 +56,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tacotron2_subword_tpu_torch import train_lib as T
 from tacotron2_subword_tpu_torch.config import TacotronConfig, create_config
 from tacotron2_subword_tpu_torch.data.dataset import (
     BertTacotron2Dataset, BucketedLoader, PrefetchLoader, load_filepaths)
+from tacotron2_subword_tpu_torch.parallel import mesh as PM
 from tacotron2_subword_tpu_torch.utils import checkpoint as CK
 from tacotron2_subword_tpu_torch.utils.logging_utils import Tacotron2Logger
 from tacotron2_subword_tpu_torch.utils.platform import (StepProfiler,
@@ -94,14 +113,16 @@ def device_batch(batch: Dict[str, np.ndarray],
     return out
 
 
-def validate(state, loader, cfg, device, generator):
-    """(weighted mean of the total loss over the loader's batches, the last
-    batch's (outputs, device batch))."""
+def validate(state, loader, cfg, device, generator, mesh=None, plan=None):
+    """(weighted mean of the total loss over the loader's global batches,
+    the last batch's (outputs, device batch) of this rank)."""
+    mesh = mesh or PM.Mesh()
     total, n, last = 0.0, 0.0, None
     for batch in loader:
         db = device_batch(batch, device)
-        losses, outputs = T.eval_step(state, db, cfg, generator=generator)
-        w = float(np.sum(batch["weight"]))
+        losses, outputs = T.eval_step(state, db, cfg, mesh=mesh, plan=plan,
+                                      generator=generator)
+        w = float(mesh.data_sum(db["weight"].sum()))
         total += float(losses["total"]) * w
         n += w
         last = (outputs, db)
@@ -140,11 +161,28 @@ def train(args) -> Dict[str, Optional[float]]:
         cfg = cfg.replace(batch_size=args.batch_size)
     if args.tokenizer_vocab:
         cfg = cfg.replace(sub_n_symbols=args.tokenizer_vocab)
-    device = resolve_device(args.device)
+    if args.multihost:
+        device = PM.init_from_env(args.device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _train(args, cfg, device)
+    finally:
+        if args.multihost:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg: TacotronConfig, device) -> Dict[str, Optional[float]]:
+    mesh = PM.make_mesh(n_model=args.model_parallel)
+    # the backend's communicators, set up while the ranks are in lockstep
+    PM.collective_barrier(mesh)
+    say = print if mesh.is_main else (lambda *a, **k: None)
+    global_batch = cfg.batch_size * mesh.n_data
     os.makedirs(args.output_directory, exist_ok=True)
 
     train_ds, val_ds = _datasets(args, cfg)
-    loader_kw = dict(batch_size=cfg.batch_size,
+    loader_kw = dict(batch_size=global_batch, shard_index=mesh.data,
+                     num_shards=mesh.n_data, shard_within_batch=True,
                      with_alignment=bool(cfg.align_loss),
                      frames_per_step=cfg.n_frames_per_step)
     train_loader = BucketedLoader(train_ds, **loader_kw)
@@ -159,17 +197,20 @@ def train(args) -> Dict[str, Optional[float]]:
         start_iter = state.step
         if cfg.use_saved_learning_rate and meta.get("learning_rate", 0) > 0:
             learning_rate = meta["learning_rate"]
-        print(f"resumed from {ckpt_path} at iteration {start_iter}",
-              flush=True)
+        say(f"resumed from {ckpt_path} at iteration {start_iter}",
+            flush=True)
     elif ckpt_path and args.warm_start:
         state = CK.warm_start(ckpt_path, state, cfg.ignore_layers)
-        print(f"warm-started from {ckpt_path}", flush=True)
+        say(f"warm-started from {ckpt_path}", flush=True)
     tx = T.make_optimizer(cfg, learning_rate)
+    shardings = PM.train_state_shardings(state, mesh)
+    state = PM.shard_train_state(state, mesh)
 
-    logger = Tacotron2Logger(args.log_directory) if args.log_directory \
-        else None
-    profiler = StepProfiler(args.profile_dir)
-    best = CK.BestTracker(args.output_directory)
+    logger = (Tacotron2Logger(args.log_directory)
+              if args.log_directory and mesh.is_main else None)
+    profiler = StepProfiler(args.profile_dir if mesh.is_main else None)
+    best = CK.BestTracker(args.output_directory, mesh)
+    # seeded alike on every rank: each draws the global batch's randomness
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     stage = lambda batch: device_batch(batch, device)
 
@@ -178,8 +219,9 @@ def train(args) -> Dict[str, Optional[float]]:
             return PrefetchLoader(loader, depth=args.prefetch, stage=stage)
         return map(stage, loader)
 
-    print(f"training: {device}, batch {cfg.batch_size}, {len(train_ds)} "
-          f"utterances", flush=True)
+    say(f"training: {device}, mesh data {mesh.n_data} x model "
+        f"{mesh.n_model}, global batch {global_batch}, {len(train_ds)} "
+        f"utterances", flush=True)
     iteration, total, val_loss, metrics = start_iter, None, None, {}
     losses, iter_s = [], []
     result = lambda: {"start_iteration": start_iter, "iterations": iteration,
@@ -192,8 +234,9 @@ def train(args) -> Dict[str, Optional[float]]:
             for db in staged(train_loader):
                 t0 = time.perf_counter()
                 profiler.step(iteration)
-                state, metrics = T.train_step(state, db, cfg, tx,
-                                              generator=generator)
+                state, metrics = T.train_step(
+                    state, db, cfg, tx, mesh=mesh, plan=shardings.params,
+                    generator=generator)
                 total = float(metrics["total"])  # host sync
                 t1 = time.perf_counter()
                 dt = t1 - t0
@@ -201,28 +244,30 @@ def train(args) -> Dict[str, Optional[float]]:
                 losses.append(total)
                 iter_s.append(t1 - t_prev)
                 if iteration % args.log_interval == 0:
-                    print(f"epoch {epoch} iter {iteration}: loss {total:.4f} "
-                          f"grad_norm {float(metrics['grad_norm']):.3f} "
-                          f"{dt:.2f}s/it", flush=True)
+                    say(f"epoch {epoch} iter {iteration}: loss {total:.8f} "
+                        f"grad_norm {float(metrics['grad_norm']):.3f} "
+                        f"{dt:.4f}s/it", flush=True)
                     if logger:
                         logger.log_training(metrics, learning_rate, dt,
                                             iteration)
                 if iteration % cfg.iters_per_checkpoint == 0:
                     val_loader = BucketedLoader(val_ds, **loader_kw)
                     val_loss, last = validate(state, val_loader, cfg, device,
-                                              generator)
-                    print(f"validation loss {val_loss:.4f}", flush=True)
-                    CK.save_checkpoint(state, args.output_directory,
+                                              generator, mesh,
+                                              shardings.params)
+                    say(f"validation loss {val_loss:.8f}", flush=True)
+                    full = PM.gather_train_state(state, mesh, shardings)
+                    CK.save_checkpoint(full, args.output_directory,
                                        val_loss=val_loss,
-                                       learning_rate=learning_rate)
-                    if best.update(state, val_loss, learning_rate):
-                        print(f"new best val loss {val_loss:.4f}",
-                              flush=True)
+                                       learning_rate=learning_rate,
+                                       mesh=mesh)
+                    if best.update(full, val_loss, learning_rate):
+                        say(f"new best val loss {val_loss:.4f}", flush=True)
                     if logger and last is not None:
-                        logger.log_validation(val_loss, state.params,
+                        logger.log_validation(val_loss, full.params,
                                               last[0], last[1], iteration)
                 if args.max_iters and iteration >= args.max_iters:
-                    print("reached max iters", flush=True)
+                    say("reached max iters", flush=True)
                     return result()
                 t_prev = time.perf_counter()
         return result()
@@ -262,6 +307,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic utterances")
+    p.add_argument("--multihost", action="store_true",
+                   help="initialize torch.distributed from the torchrun "
+                        "environment (one process per card)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="model-axis size (splits the embeddings' and the "
+                        "decoder LSTMs' storage; data axis = ranks / this)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches loaded and copied ahead in a thread "
                         "(0: in the loop)")

@@ -26,8 +26,18 @@ reference's ``{'generator': state_dict}`` torch file (weight_v / weight_g
 discriminators, both Adam states and the iteration, which ``--resume``
 restores exactly.  ``loss_curve.csv`` takes a row every
 ``--log-interval`` iterations and is appended to on resume.  The device is
-CUDA unless ``--device cpu`` is given; the port trains on one device at
-``--batch-size`` (the JAX CLI at batch-size x its devices).
+CUDA unless ``--device cpu`` is given.
+
+Launched by ``python -m torch.distributed.run --nproc_per_node=N -m
+tacotron2_subword_tpu_torch.apps.train_hifigan ...`` it trains on N ranks
+(NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) over the data
+axis, as the JAX CLI trains over its devices: ``--batch-size`` is per rank,
+every rank draws the global batch of batch-size x N segments from the same
+seeded sampler and keeps its rows, each rank's loss is its share of the
+global batch mean and the gradients are summed over the ranks, so N ranks
+take the step one process takes on the global batch.  The per-epoch decay
+counts global batches.  Rank 0 prints and writes the files; ``--resume``
+is read by every rank.
 """
 
 from __future__ import annotations
@@ -40,10 +50,13 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tacotron2_subword_tpu_torch.models import hifigan as HG
 from tacotron2_subword_tpu_torch.ops import stft as S
-from tacotron2_subword_tpu_torch.train_lib import AdamState, Optimizer, adam
+from tacotron2_subword_tpu_torch.parallel import mesh as PM
+from tacotron2_subword_tpu_torch.train_lib import (AdamState, Optimizer, adam,
+                                                   global_metrics)
 from tacotron2_subword_tpu_torch.utils.audio import load_wav
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 from tacotron2_subword_tpu_torch.utils.tree import (tree_leaves, tree_map,
@@ -179,10 +192,12 @@ def stft_l1(y_hat: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
         - torch.log(torch.clamp_min(sm_y[..., :k], 1e-5))))
 
 
-def _grads(loss: torch.Tensor, tree) -> dict:
+def _grads(loss: torch.Tensor, tree, mesh: PM.Mesh) -> dict:
+    """The gradient of ``loss`` (this rank's share of the global loss)
+    summed over the data axis."""
     leaves = tree_leaves(tree)
     it = iter(torch.autograd.grad(loss, leaves))
-    return tree_map(lambda _: next(it), tree)
+    return PM.sum_gradients(tree_map(lambda _: next(it), tree), None, mesh)
 
 
 def _leaf(tree):
@@ -194,19 +209,23 @@ def _apply(tree, updates):
 
 
 def discriminator_update(disc, opt_d: AdamState, y: torch.Tensor,
-                         y_hat: torch.Tensor, tx_d: Optimizer):
+                         y_hat: torch.Tensor, tx_d: Optimizer,
+                         mesh: Optional[PM.Mesh] = None):
     """One Adam step of the discriminators on real y and generated y_hat
-    [B, 1, T] (LSGAN); returns (new params, new Adam state, d_loss)."""
+    [B, 1, T] (LSGAN); returns (new params, new Adam state, this rank's
+    share of d_loss, ``mesh``'s data axis summing the gradients)."""
+    mesh = mesh or PM.Mesh()
     leaves = _leaf(disc)
     rs, gs, _, _ = HG.discriminators_apply(leaves, y, y_hat)
-    d_loss = HG.discriminator_loss(rs, gs)
-    upd, opt_d = tx_d.update(_grads(d_loss, leaves), opt_d)
+    d_loss = HG.discriminator_loss(rs, gs) / mesh.n_data
+    upd, opt_d = tx_d.update(_grads(d_loss, leaves, mesh), opt_d)
     return _apply(disc, upd), opt_d, d_loss.detach()
 
 
 def gan_step(state: GanState, mel: torch.Tensor, audio: torch.Tensor,
              h: HG.HifiganConfig, tx_g: Optimizer, tx_d: Optimizer, *,
-             mel_only: bool = False, stft_loss_weight: float = 0.0):
+             mel_only: bool = False, stft_loss_weight: float = 0.0,
+             mesh: Optional[PM.Mesh] = None):
     """One training step on mel [B, n_mels, frames] and audio [B, samples]
     (the JAX CLI's ``step_impl``).  GAN: the discriminators take one Adam
     step on D(y) and D(G(mel)) detached, then the generator one on
@@ -214,31 +233,39 @@ def gan_step(state: GanState, mel: torch.Tensor, audio: torch.Tensor,
     discriminators; the generator's output is computed once for both.
     ``mel_only``: the generator alone on 45 x mel L1 (+ ``stft_loss_weight``
     x log-|STFT| L1), d_loss 0.  Returns (new state, {d_loss, g_loss,
-    mel_l1}) with the losses as 0-dim tensors on the device."""
+    mel_l1}) with the losses as 0-dim tensors on the device.
+
+    On a ``mesh`` (its data axis) mel and audio are this rank's rows of the
+    global batch.  Every term is a plain mean over rows of one shape, so
+    each rank's share of the global loss is its own mean / n_data; the
+    gradients are summed over the data axis and the losses returned are
+    the global ones."""
+    mesh = mesh or PM.Mesh()
+    share = lambda loss: loss / mesh.n_data
     gen = _leaf(state.gen)
     y_hat = HG.generator_apply(gen, h, mel)
     if mel_only:
-        loss_mel = mel_l1(y_hat, audio)
+        loss_mel = share(mel_l1(y_hat, audio))
         total = 45.0 * loss_mel
         if stft_loss_weight:
-            total = total + stft_loss_weight * stft_l1(y_hat, audio)
-        upd, opt_g = tx_g.update(_grads(total, gen), state.opt_g)
+            total = total + stft_loss_weight * share(stft_l1(y_hat, audio))
+        upd, opt_g = tx_g.update(_grads(total, gen, mesh), state.opt_g)
         return (state._replace(gen=_apply(state.gen, upd), opt_g=opt_g),
-                {"d_loss": torch.zeros((), device=mel.device),
-                 "g_loss": total.detach(), "mel_l1": loss_mel.detach()})
+                global_metrics({"d_loss": torch.zeros((), device=mel.device),
+                                "g_loss": total, "mel_l1": loss_mel}, mesh))
     y = audio[:, None, :]
     new_disc, opt_d, d_loss = discriminator_update(
-        state.disc, state.opt_d, y, y_hat.detach(), tx_d)
+        state.disc, state.opt_d, y, y_hat.detach(), tx_d, mesh)
     with torch.no_grad():
         _, fr = HG.discriminate(new_disc, y)
     gs, fg = HG.discriminate(new_disc, y_hat)
-    loss_mel = mel_l1(y_hat, audio)
-    total = (HG.generator_adv_loss(gs) + HG.feature_loss(fr, fg)
+    loss_mel = share(mel_l1(y_hat, audio))
+    total = (share(HG.generator_adv_loss(gs) + HG.feature_loss(fr, fg))
              + 45.0 * loss_mel)
-    upd, opt_g = tx_g.update(_grads(total, gen), state.opt_g)
+    upd, opt_g = tx_g.update(_grads(total, gen, mesh), state.opt_g)
     return (GanState(_apply(state.gen, upd), new_disc, opt_g, opt_d),
-            {"d_loss": d_loss.detach(), "g_loss": total.detach(),
-             "mel_l1": loss_mel.detach()})
+            global_metrics({"d_loss": d_loss, "g_loss": total,
+                            "mel_l1": loss_mel}, mesh))
 
 
 def _structure(tree):
@@ -285,7 +312,20 @@ def train(args) -> Dict:
     [(d, g, mel) per logged iteration], s_per_it [per log window, its mean
     wall s per iteration: batch sampling, the step and the previous
     window's checkpoint write], clips, decay_every}."""
-    device = resolve_device(args.device)
+    launched = PM.torchrun_env()
+    device = (PM.init_from_env(args.device) if launched
+              else resolve_device(args.device))
+    try:
+        return _train(args, device)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> Dict:
+    mesh = PM.make_mesh()
+    PM.collective_barrier(mesh)
+    say = print if mesh.is_main else (lambda *a, **k: None)
     h = (HG.HifiganConfig.from_json(args.config) if args.config
          else HG.HifiganConfig())
     os.makedirs(args.output_directory, exist_ok=True)
@@ -294,38 +334,45 @@ def train(args) -> Dict:
     else:
         ds = SegmentSampler(sorted(glob.glob(
             os.path.join(args.wav_dir, "*.wav"))), args.mel_dir)
-    print(f"hifigan training: {len(ds)} clips on {device}")
+    say(f"hifigan training: {len(ds)} clips on {device}, {mesh.n_data} "
+        f"data ranks")
 
     gen = torch.Generator().manual_seed(args.seed)
     params = HG.init_generator(gen, h, device=device)
     disc = HG.init_discriminators(gen, device=device)
     B = args.batch_size
+    B_total = B * mesh.n_data
     # "epoch" for the per-epoch reference decay = one pass over the clips
-    decay_every = args.decay_every or max(len(ds) // max(B, 1), 1)
+    decay_every = args.decay_every or max(len(ds) // max(B_total, 1), 1)
     if args.lr_decay < 1.0:
-        print(f"lr decay {args.lr_decay} every {decay_every} iters "
-              f"(reference ExponentialLR per epoch)")
+        say(f"lr decay {args.lr_decay} every {decay_every} iters "
+            f"(reference ExponentialLR per epoch)")
     tx_g = make_optimizer(args.lr, args.lr_decay, decay_every)
     tx_d = make_optimizer(args.lr, args.lr_decay, decay_every)
     state = GanState(params, disc, tx_g.init(params), tx_d.init(disc))
     start_it = 0
     if args.resume:
         state, start_it = restore_gan_state(args.resume, state, device)
-        print(f"resumed GAN state at iter {start_it} from {args.resume}")
+        say(f"resumed GAN state at iter {start_it} from {args.resume}")
 
+    rows = slice(mesh.data * B, (mesh.data + 1) * B)
     curve_path = os.path.join(args.output_directory, "loss_curve.csv")
     curve_new = not (args.resume and os.path.exists(curve_path))
     losses, s_per_it = [], []
-    with open(curve_path, "w" if curve_new else "a") as curve:
+    curve = (open(curve_path, "w" if curve_new else "a") if mesh.is_main
+             else open(os.devnull, "w"))
+    with curve:
         if curve_new:
             curve.write("iter,d_loss,g_loss,mel_l1,s_per_it\n")
         t_log = time.perf_counter()
         for it in range(start_it + 1, start_it + args.iters + 1):
-            mel, audio = ds.sample_batch(B)
-            state, m = gan_step(state, torch.from_numpy(mel).to(device),
-                                torch.from_numpy(audio).to(device), h, tx_g,
-                                tx_d, mel_only=args.mel_only,
-                                stft_loss_weight=args.stft_loss_weight)
+            mel, audio = ds.sample_batch(B_total)
+            state, m = gan_step(state,
+                                torch.from_numpy(mel[rows]).to(device),
+                                torch.from_numpy(audio[rows]).to(device), h,
+                                tx_g, tx_d, mel_only=args.mel_only,
+                                stft_loss_weight=args.stft_loss_weight,
+                                mesh=mesh)
             # the losses come to the host, and the host waits for the
             # device, only every --log-interval iters: in between, the
             # next batch is sampled while the device runs the step
@@ -335,18 +382,20 @@ def train(args) -> Dict:
                 s_it = (time.perf_counter() - t_log) / args.log_interval
                 losses.append((dl, gl, lm))
                 s_per_it.append(s_it)
-                print(f"iter {it}: d {dl:.3f} g {gl:.3f} mel {lm:.3f} "
-                      f"{s_it:.2f}s/it", flush=True)
+                say(f"iter {it}: d {dl:.3f} g {gl:.3f} mel {lm:.3f} "
+                    f"{s_it:.2f}s/it", flush=True)
                 curve.write(f"{it},{dl:.4f},{gl:.4f},{lm:.4f},{s_it:.3f}\n")
                 curve.flush()
                 t_log = time.perf_counter()
             if it % args.iters_per_checkpoint == 0:
-                out = args.output_directory
-                torch.save({"generator": HG.export_torch_generator(
-                    state.gen)}, os.path.join(out, f"g_{it:08d}"))
-                save_gan_state(os.path.join(out, f"state_{it:08d}"), state,
-                               it)
-                print(f"saved g_{it:08d} + state_{it:08d}")
+                if mesh.is_main:
+                    out = args.output_directory
+                    torch.save({"generator": HG.export_torch_generator(
+                        state.gen)}, os.path.join(out, f"g_{it:08d}"))
+                    save_gan_state(os.path.join(out, f"state_{it:08d}"),
+                                   state, it)
+                    print(f"saved g_{it:08d} + state_{it:08d}")
+                PM.collective_barrier(mesh)
     return {"start_iteration": start_it, "iterations": start_it + args.iters,
             "losses": losses, "s_per_it": s_per_it, "clips": len(ds),
             "decay_every": decay_every}

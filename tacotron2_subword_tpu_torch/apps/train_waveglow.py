@@ -18,9 +18,18 @@ reference ``waveglow/config.json`` layout (``waveglow_config`` with its
 Every ``--iters-per-checkpoint`` iterations it saves ``waveglow_{it}``, a
 ``weights_only`` torch file of the params, the Adam state, the iteration
 and the segment sampler's random state; ``--resume`` restores all four,
-so a resumed run draws the segments a straight run would.  One device
-(CUDA unless ``--device cpu``); the JAX CLI trains at batch-size x its
-devices.
+so a resumed run draws the segments a straight run would.  The device is
+CUDA unless ``--device cpu`` is given.
+
+Launched by ``python -m torch.distributed.run --nproc_per_node=N -m
+tacotron2_subword_tpu_torch.apps.train_waveglow ...`` it trains on N ranks
+(NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) over the data
+axis, as the JAX CLI trains over its devices: ``--batch-size`` is per
+rank, every rank draws the global batch of batch-size x N segments from
+the same seeded sampler and keeps its rows, the NLL (a mean over the
+latent's elements, which every row has as many of) becomes each rank's
+share and the gradients are summed over the ranks.  Rank 0 prints and
+writes the files; ``--resume`` is read by every rank.
 """
 
 from __future__ import annotations
@@ -35,10 +44,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tacotron2_subword_tpu_torch.models import waveglow as WG
 from tacotron2_subword_tpu_torch.ops import stft as S
-from tacotron2_subword_tpu_torch.train_lib import AdamState, Optimizer, adam
+from tacotron2_subword_tpu_torch.parallel import mesh as PM
+from tacotron2_subword_tpu_torch.train_lib import (AdamState, Optimizer, adam,
+                                                   global_metrics)
 from tacotron2_subword_tpu_torch.utils.audio import load_wav
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 from tacotron2_subword_tpu_torch.utils.tree import (to_device, tree_leaves,
@@ -122,23 +134,30 @@ def make_optimizer(lr: float) -> Optimizer:
 
 
 def loss_and_grads(params, audio: torch.Tensor, cfg: WG.WaveGlowConfig,
-                   sigma: float = 1.0):
+                   sigma: float = 1.0, mesh: Optional[PM.Mesh] = None):
     """The flow NLL of audio [B, T] given its own mel (the JAX CLI's
     ``loss_fn``) and its gradient: (loss as a 0-dim tensor, grads in the
-    params' tree)."""
+    params' tree).  On a ``mesh`` audio is this rank's rows of the global
+    batch: the loss and the gradients (summed over the data axis) are the
+    global batch's."""
+    mesh = mesh or PM.Mesh()
     mel = S.mel_spectrogram(audio, n_mel_channels=cfg.n_mel_channels)
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    nll = WG.loss(WG.forward(leaves, cfg, mel, audio), sigma=sigma)
+    nll = WG.loss(WG.forward(leaves, cfg, mel, audio),
+                  sigma=sigma) / mesh.n_data
     grads = iter(torch.autograd.grad(nll, tree_leaves(leaves)))
-    return nll.detach(), tree_map(lambda _: next(grads), leaves)
+    grads = PM.sum_gradients(tree_map(lambda _: next(grads), leaves), None,
+                             mesh)
+    return global_metrics({"nll": nll}, mesh)["nll"], grads
 
 
 def train_step(params, opt_state: AdamState, audio: torch.Tensor,
-               cfg: WG.WaveGlowConfig, tx: Optimizer, sigma: float = 1.0):
+               cfg: WG.WaveGlowConfig, tx: Optimizer, sigma: float = 1.0,
+               mesh: Optional[PM.Mesh] = None):
     """One step on audio [B, T] (the JAX CLI's ``step_impl``):
     ``loss_and_grads``, then one Adam update.  Returns (new params, new
     Adam state, loss as a 0-dim tensor)."""
-    nll, grads = loss_and_grads(params, audio, cfg, sigma)
+    nll, grads = loss_and_grads(params, audio, cfg, sigma, mesh)
     upd, opt_state = tx.update(grads, opt_state)
     return (tree_map(lambda p, u: (p + u).detach(), params, upd), opt_state,
             nll)
@@ -184,7 +203,20 @@ def load_waveglow(path: str, device, template=None):
 def train(args) -> Dict:
     """The CLI's loop; returns {start_iteration, iterations, losses (one per
     iteration), s_per_it, wavs, checkpoints}."""
-    device = resolve_device(args.device)
+    launched = PM.torchrun_env()
+    device = (PM.init_from_env(args.device) if launched
+              else resolve_device(args.device))
+    try:
+        return _train(args, device)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> Dict:
+    mesh = PM.make_mesh()
+    PM.collective_barrier(mesh)
+    say = print if mesh.is_main else (lambda *a, **k: None)
     cfg, lr, sigma = load_config(args.config, args.flows)
     os.makedirs(args.output_directory, exist_ok=True)
     if args.synthetic:
@@ -192,7 +224,8 @@ def train(args) -> Dict:
     else:
         ds = Mel2SampDataset(sorted(glob.glob(
             os.path.join(args.wav_dir, "*.wav"))))
-    print(f"waveglow training: {len(ds)} wavs on {device}")
+    say(f"waveglow training: {len(ds)} wavs on {device}, {mesh.n_data} "
+        f"data ranks")
 
     params = WG.init_waveglow(torch.Generator().manual_seed(args.seed), cfg,
                               device=device)
@@ -203,23 +236,28 @@ def train(args) -> Dict:
         params, opt_state, start, rng = load_waveglow(args.resume, device,
                                                       template=params)
         _set_rng_state(ds.rng, rng)
-        print(f"resumed at iter {start} from {args.resume}")
+        say(f"resumed at iter {start} from {args.resume}")
 
+    B = args.batch_size
+    rows = slice(mesh.data * B, (mesh.data + 1) * B)
     losses, s_per_it, saved = [], [], []
     for it in range(start + 1, start + args.iters + 1):
         t0 = time.perf_counter()
-        audio = torch.from_numpy(ds.sample_batch(args.batch_size)).to(device)
+        audio = torch.from_numpy(
+            ds.sample_batch(B * mesh.n_data)[rows]).to(device)
         params, opt_state, nll = train_step(params, opt_state, audio, cfg,
-                                            tx, sigma)
+                                            tx, sigma, mesh)
         losses.append(nll.item())
         s_per_it.append(time.perf_counter() - t0)
-        print(f"iter {it}: loss {losses[-1]:.4f} {s_per_it[-1]:.2f}s/it",
-              flush=True)
+        say(f"iter {it}: loss {losses[-1]:.4f} {s_per_it[-1]:.2f}s/it",
+            flush=True)
         if it % args.iters_per_checkpoint == 0:
             path = os.path.join(args.output_directory, f"waveglow_{it}")
-            save_waveglow(path, params, opt_state, it, ds.rng)
+            if mesh.is_main:
+                save_waveglow(path, params, opt_state, it, ds.rng)
+                print(f"saved {path}")
+            PM.collective_barrier(mesh)
             saved.append(path)
-            print(f"saved {path}")
     return {"start_iteration": start, "iterations": start + args.iters,
             "losses": losses, "s_per_it": s_per_it, "wavs": len(ds),
             "checkpoints": saved}

@@ -7,11 +7,11 @@ The port's own copy of ``tacotron2_subword_tpu/data/dataset.py``:
 column 1, ``ljspeech-mel-%05d.npy`` (1-indexed), subword IDs and a BERT
 [CLS] vector per index), ``pad_batch`` and ``BucketedLoader`` with the same
 bucket edges, padding, gate target and repeat-to-fill ``weight``, so one
-corpus gives the same batches in both packages, and ``PrefetchLoader``.
+corpus gives the same batches in both packages, the loader's shard
+options for multi-rank training, and ``PrefetchLoader``.
 
-Left out: the loader's multi-host shard options (one process here; ROADMAP
-Queue 1 item 7) and ``compile_plan``, which costs the XLA compile budget of
-the bucket grid.  PyTorch compiles nothing per bucket shape.
+Left out: ``compile_plan``, which costs the XLA compile budget of the
+bucket grid.  PyTorch compiles nothing per bucket shape.
 """
 
 from __future__ import annotations
@@ -143,14 +143,29 @@ class BucketedLoader:
     filled by repeating its last sample, and ``weight`` (1 for real rows, 0
     for the repeats) keeps the repeats out of the loss.  The order is
     shuffled per epoch, from a seed that depends on the epoch only (as in
-    the JAX package, whose ``seed`` argument the shuffle does not read)."""
+    the JAX package, whose ``seed`` argument the shuffle does not read:
+    ``seed`` is taken and unread here too).
+
+    Shards (``shard_index`` of ``num_shards``, one per data rank): with
+    ``shard_within_batch`` every shard iterates the whole dataset in the
+    same order, forms the same global batches of ``batch_size`` and keeps
+    its contiguous rows of each (``weight`` included), so the ranks stay in
+    lockstep on batch count and shape; a ``batch_size`` that
+    ``num_shards`` does not divide raises ValueError.  Without it each
+    shard takes every ``num_shards``-th utterance and batches them
+    itself."""
 
     def __init__(self, dataset, batch_size: int,
                  text_edges: Sequence[int] = (32, 64, 96, 128, 192),
                  mel_edges: Sequence[int] = (128, 256, 384, 512, 768, 1024),
                  sub_edges: Sequence[int] = (16, 32, 48, 64, 96),
+                 seed: int = 0, shard_index: int = 0, num_shards: int = 1,
                  drop_remainder: bool = False,
-                 with_alignment: bool = False, frames_per_step: int = 1):
+                 with_alignment: bool = False, frames_per_step: int = 1,
+                 shard_within_batch: bool = False):
+        if shard_within_batch and batch_size % num_shards:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"num_shards={num_shards}")
         self.ds = dataset
         self.batch_size = batch_size
         self.text_edges = sorted(text_edges)
@@ -158,6 +173,9 @@ class BucketedLoader:
         r = max(int(frames_per_step), 1)
         self.mel_edges = sorted({-(-e // r) * r for e in mel_edges})
         self.sub_edges = sorted(sub_edges)
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self.shard_within_batch = shard_within_batch
         self.drop_remainder = drop_remainder
         self.with_alignment = with_alignment
         self.epoch = 0
@@ -169,6 +187,8 @@ class BucketedLoader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = np.arange(len(self.ds))
         np.random.RandomState(self.epoch * 9973 + 17).shuffle(idx)
+        if not self.shard_within_batch:
+            idx = idx[self.shard_index::self.num_shards]
         self.epoch += 1
         buckets: Dict[Tuple[int, int, int], list] = {}
         for i in idx:
@@ -178,7 +198,7 @@ class BucketedLoader:
                    self._edge(self.mel_edges, s["mel"].shape[1]))
             buckets.setdefault(key, []).append(s)
             if len(buckets[key]) == self.batch_size:
-                yield self._emit(key, buckets.pop(key))
+                yield self._rows(self._emit(key, buckets.pop(key)))
         for key, rest in sorted(buckets.items()):
             if self.drop_remainder:
                 continue
@@ -188,7 +208,7 @@ class BucketedLoader:
                 rest.append(rest[-1])
             b = self._emit(key, rest)
             b["weight"] = weight
-            yield b
+            yield self._rows(b)
 
     def _emit(self, key, samples) -> Dict[str, np.ndarray]:
         t, s, m = key
@@ -196,6 +216,15 @@ class BucketedLoader:
                       with_alignment=self.with_alignment)
         b["weight"] = np.ones(len(samples), np.float32)
         return b
+
+    def _rows(self, b: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This shard's contiguous rows of a global batch (lockstep
+        mode)."""
+        if not self.shard_within_batch or self.num_shards == 1:
+            return b
+        k = self.batch_size // self.num_shards
+        lo = self.shard_index * k
+        return {key: v[lo:lo + k] for key, v in b.items()}
 
 
 class PrefetchLoader:

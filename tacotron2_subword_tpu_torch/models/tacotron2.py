@@ -158,15 +158,17 @@ def init_tacotron2(generator: torch.Generator, cfg: TacotronConfig,
 
 def encoder_apply(params, bn_state, x: torch.Tensor,
                   lengths: Optional[torch.Tensor], *, training: bool = False,
-                  masks: Optional[List[torch.Tensor]] = None):
+                  masks: Optional[List[torch.Tensor]] = None, mesh=None):
     """x [B, C, T] embedded inputs -> ([B, T, C], new BN state): 3x
     conv/BN/ReLU (with dropout 0.5 on ``masks`` in training), then the
-    length-exact BiLSTM.  In eval the BN state is returned as given."""
+    length-exact BiLSTM.  In eval the BN state is returned as given.  In
+    training, BN takes its statistics over ``mesh``'s data axis."""
     new_bn = []
     for i, layer in enumerate(params["convs"]):
         y = L.conv1d_apply(layer["conv"], x)
         if training:
-            y, bn_s = L.batchnorm_apply(layer["bn"], bn_state[i], y, True)
+            y, bn_s = L.batchnorm_apply(layer["bn"], bn_state[i], y, True,
+                                        mesh=mesh)
             y = L.dropout(torch.relu(y), 0.5, masks[i])
         else:
             bn_s = bn_state[i]
@@ -195,16 +197,17 @@ def _prenet_masks(generator, n: int, shape, dtype, device) -> torch.Tensor:
 
 def postnet_apply(params, bn_state, x: torch.Tensor, *,
                   training: bool = False,
-                  masks: Optional[List[torch.Tensor]] = None):
+                  masks: Optional[List[torch.Tensor]] = None, mesh=None):
     """x [B, n_mels, T] -> (residual [B, n_mels, T], new BN state): 5 convs
     with BN, tanh on all but the last, dropout 0.5 on ``masks`` after every
-    layer in training."""
+    layer in training (BN's statistics over ``mesh``'s data axis)."""
     n = len(params)
     new_bn = []
     for i, layer in enumerate(params):
         y = L.conv1d_apply(layer["conv"], x)
         if training:
-            y, bn_s = L.batchnorm_apply(layer["bn"], bn_state[i], y, True)
+            y, bn_s = L.batchnorm_apply(layer["bn"], bn_state[i], y, True,
+                                        mesh=mesh)
         else:
             bn_s = bn_state[i]
             y = L.batchnorm_apply(layer["bn"], bn_s, y)
@@ -428,9 +431,25 @@ class _TFScanCustom(torch.autograd.Function):
                 dg_dec.sum((0, 1)).to(dec_b.dtype), dmem, dpm, dpre, *d_att)
 
 
+# the batch dim of each randomness entry (a list holds one tensor per layer)
+RANDOMNESS_BATCH_DIM = {"prenet": 0, "prenet_bert": 0, "encoder": 0,
+                        "encoder_sub": 0, "postnet": 0, "att_h": 2,
+                        "att_c": 2, "dec_h": 1, "dec_c": 1, "noise": 2}
+
+
+def randomness_rows(randomness: Dict, start: int, stop: int) -> Dict:
+    """The batch rows [start, stop) of a ``make_randomness`` dict."""
+    def rows(k, v):
+        if isinstance(v, list):
+            return [rows(k, t) for t in v]
+        return v.narrow(RANDOMNESS_BATCH_DIM[k], start, stop - start)
+    return {k: rows(k, v) for k, v in randomness.items()}
+
+
 def make_randomness(cfg: TacotronConfig, B: int, T_text: int, T_sub: int,
                     T_out: int, *, training: bool,
-                    generator: Optional[torch.Generator], device=None):
+                    generator: Optional[torch.Generator], device=None,
+                    mesh=None):
     """Every random draw of one ``forward``, up front: boolean keep-masks
     (True = keep) and SMA's noise.  Keys: "prenet"/"prenet_bert" (2 masks
     [B, T_steps, prenet_dim] each, when prenet dropout is on);
@@ -439,7 +458,17 @@ def make_randomness(cfg: TacotronConfig, B: int, T_text: int, T_sub: int,
     [T_steps, 2, B, A], "dec_h"/"dec_c" [T_steps, B, D] and, for SMA only
     (no other variant reads it), "noise" [T_steps, 2, B, max(T_text,
     T_sub)] (N(0, 1) * SMA_SIGMOID_NOISE, f32).  ``generator`` lives on
-    ``device``."""
+    ``device``.
+
+    With a ``mesh`` (``parallel.mesh``), B is this rank's share of the
+    batch: the global batch's draws are made (every rank's generator seeded
+    alike), then this rank's rows are kept, so N ranks see the numbers one
+    process sees."""
+    if mesh is not None and mesh.n_data > 1:
+        full = make_randomness(cfg, B * mesh.n_data, T_text, T_sub, T_out,
+                               training=training, generator=generator,
+                               device=device)
+        return randomness_rows(full, mesh.data * B, (mesh.data + 1) * B)
     T_steps = T_out // cfg.n_frames_per_step
     out = {}
     need = training or cfg.prenet_dropout_always_on
@@ -665,13 +694,13 @@ def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
 
 def _encode_stream(params, bn_state, emb_table, ids, lengths, cls, converter,
                    dtype: torch.dtype, *, training: bool = False,
-                   masks: Optional[List[torch.Tensor]] = None):
+                   masks: Optional[List[torch.Tensor]] = None, mesh=None):
     """embedding -> encoder -> concat [CLS] -> linear converter: (memory
     [B, T, encoder_embedding_dim] in ``dtype``, new encoder BN state)."""
     params = cast_floats(params, dtype)
     emb = L.embedding_apply(emb_table.to(dtype), ids)      # [B, T, C]
     enc, new_bn = encoder_apply(params, bn_state, emb.transpose(1, 2), lengths,
-                                training=training, masks=masks)
+                                training=training, masks=masks, mesh=mesh)
     if cls.dim() == 2:
         cls = cls[:, None, :].expand(-1, enc.shape[1], -1)
     fused = torch.cat([enc, cls.to(enc.dtype)], dim=-1)
@@ -691,7 +720,7 @@ def parse_output(mel, mel_postnet, gate, output_lengths, n_mel_channels,
 
 def forward(params, bn_state, cfg: TacotronConfig, batch, *, training: bool,
             generator: Optional[torch.Generator] = None,
-            randomness: Optional[Dict] = None):
+            randomness: Optional[Dict] = None, mesh=None):
     """Teacher-forced forward pass.
 
     batch: text [B, T_text] int, text_lengths [B], sub [B, T_sub] int,
@@ -699,7 +728,9 @@ def forward(params, bn_state, cfg: TacotronConfig, batch, *, training: bool,
     cls_phone / cls_sub [B, 768] (or per token [B, T, 768]), all on one
     device.  The randomness comes from ``randomness`` (see
     ``make_randomness``) or, when that is None, is drawn from
-    ``generator`` (on the batch's device).
+    ``generator`` (on the batch's device).  With a ``mesh``
+    (``parallel.mesh``) the batch is this rank's rows of the global batch:
+    the BN statistics and the randomness are the global batch's.
 
     Returns (outputs {mel, mel_postnet, gate, alignments,
     alignments_bert}, new BN state)."""
@@ -709,24 +740,25 @@ def forward(params, bn_state, cfg: TacotronConfig, batch, *, training: bool,
         randomness = make_randomness(
             cfg, B, T_text, batch["sub"].shape[1], batch["mels"].shape[2],
             training=training, generator=generator,
-            device=batch["mels"].device)
+            device=batch["mels"].device, mesh=mesh)
     memory, bn_enc = _encode_stream(
         params["encoder"], bn_state["encoder"], params["embedding"],
         batch["text"], batch["text_lengths"], batch["cls_phone"],
         params["linear_converter"], dtype, training=training,
-        masks=randomness.get("encoder"))
+        masks=randomness.get("encoder"), mesh=mesh)
     memory_b, bn_enc_b = _encode_stream(
         params["encoder_sub"], bn_state["encoder_sub"],
         params["embedding_sub"], batch["sub"], batch["sub_lengths"],
         batch["cls_sub"], params["linear_converter_sub"], dtype,
-        training=training, masks=randomness.get("encoder_sub"))
+        training=training, masks=randomness.get("encoder_sub"), mesh=mesh)
     mel, gate, align, align_b = decoder_teacher_forced(
         params["decoder"], cfg, memory, memory_b, batch["mels"],
         batch["text_lengths"], batch["sub_lengths"], training=training,
         randomness=randomness)
     residual, bn_post = postnet_apply(
         cast_floats(params["postnet"], dtype), bn_state["postnet"],
-        mel.to(dtype), training=training, masks=randomness.get("postnet"))
+        mel.to(dtype), training=training, masks=randomness.get("postnet"),
+        mesh=mesh)
     mel_postnet = mel + residual.float()
     mel, mel_postnet, gate = parse_output(
         mel, mel_postnet, gate, batch.get("output_lengths"),

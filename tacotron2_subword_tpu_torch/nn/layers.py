@@ -158,21 +158,31 @@ def fuse_weight_norm(p):
 # -- BatchNorm1d / dropout / embedding ------------------------------------------
 
 def batchnorm_apply(params, state, x: torch.Tensor, training: bool = False,
-                    momentum: float = 0.1, eps: float = 1e-5):
+                    momentum: float = 0.1, eps: float = 1e-5, mesh=None):
     """BatchNorm1d over x [B, C, T].
 
     Eval mode returns y, normalised with the running statistics.  Training
     mode returns (y, new_state): y is normalised with the batch statistics
     over (B, T), taken in f32 and biased (padding included, as in the
     reference); the running variance takes Bessel's correction over the
-    B*T values, with ``momentum``."""
+    B*T values, with ``momentum``.  With a ``mesh`` (``parallel.mesh``) the
+    batch is its data axis's (every rank holds as many rows): the global
+    mean is the mean of the ranks' means, the global variance the mean of
+    each rank's variance plus its mean's squared distance from the global
+    mean, both summed over the data group differentiably, so every rank
+    normalises with, and keeps, the global statistics.  With one data rank
+    these are the local statistics bit for bit."""
     if not training:
         mean, var = state["mean"], state["var"]
     else:
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=(0, 2))
-        var = xf.var(dim=(0, 2), unbiased=False)
-        count = x.shape[0] * x.shape[2]
+        data_sum, n_data = ((mesh.data_sum, mesh.n_data) if mesh is not None
+                            else (lambda t: t, 1))
+        count = x.shape[0] * x.shape[2] * n_data
+        mean_l = xf.mean(dim=(0, 2))
+        mean = data_sum(mean_l) / n_data
+        var = data_sum(xf.var(dim=(0, 2), unbiased=False)
+                       + (mean_l - mean) ** 2) / n_data
         unbiased = var * count / max(count - 1.0, 1.0)
         new_state = {
             "mean": (1 - momentum) * state["mean"] + momentum * mean,

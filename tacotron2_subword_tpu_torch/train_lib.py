@@ -9,6 +9,16 @@ optax chain written out over tensors: L2 decay added to the gradient,
 global-norm clipping, Adam with bias correction, then the step -lr.  A
 non-finite gradient norm skips the update of params and optimizer state
 (the step count still moves), with no host sync.
+
+On a ``parallel.mesh.Mesh`` of N data ranks each rank holds its rows of
+the global batch and computes its share of the global loss: every mean
+divides by the global element count, every ``weight`` sum is summed over
+the data group, and the BN statistics and the randomness are the global
+batch's.  The gradients are summed over the data axis, so N ranks compute
+what one process computes on the global batch (the JAX package's jitted
+step over a sharded batch), and the metrics returned are the global
+values.  With a model axis the planned leaves' params and Adam moments are
+stored as slices and gathered for the step (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from tacotron2_subword_tpu_torch.config import TacotronConfig
 from tacotron2_subword_tpu_torch.models import tacotron2 as M
 from tacotron2_subword_tpu_torch.ops import softdtw as SD
 from tacotron2_subword_tpu_torch.ops.ssim import ssim
+from tacotron2_subword_tpu_torch.parallel import mesh as PM
 from tacotron2_subword_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -46,12 +57,29 @@ def _masked_kl(align_out, align_target, text_lengths, mel_lengths):
     return per_sample.sum()
 
 
+def _n_data(mesh: Optional[PM.Mesh]) -> int:
+    return 1 if mesh is None else mesh.n_data
+
+
+def _mean(x: torch.Tensor, mesh: Optional[PM.Mesh]) -> torch.Tensor:
+    """This rank's share of the mean of ``x`` over the global batch
+    (``mesh``'s data axis; every rank holds as many rows)."""
+    return x.mean() / _n_data(mesh)
+
+
+def _weight_sum(w: torch.Tensor, mesh: Optional[PM.Mesh]) -> torch.Tensor:
+    """The global batch's ``weight`` sum, at least 1."""
+    s = w.sum() if mesh is None else mesh.data_sum(w.sum())
+    return torch.clamp_min(s, 1.0)
+
+
 def softdtw_mel_loss(mel_out: torch.Tensor, mel_target: torch.Tensor,
                      cfg: TacotronConfig,
-                     w: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     w: Optional[torch.Tensor] = None,
+                     mesh: Optional[PM.Mesh] = None) -> torch.Tensor:
     """Soft-DTW between predicted and target mels [B, n_mels, T] over the
     frames' squared distances, normalised by (N + M) * n_mels; the
-    (weighted) mean over the batch.
+    (weighted) mean over the (global) batch.
 
     ``cfg.softdtw_impl``: "auto" and "pallas" take the kernels (K2 where a
     gradient is needed, K3 where not), "scan" the plain implementation."""
@@ -67,38 +95,43 @@ def softdtw_mel_loss(mel_out: torch.Tensor, mel_target: torch.Tensor,
         raise ValueError(f"unknown softdtw_impl {cfg.softdtw_impl!r}")
     per = vals / float((N + Mf) * mel_out.shape[1])
     if w is None:
-        return per.mean()
-    return (per * w).sum() / torch.clamp_min(w.sum(), 1.0)
+        return _mean(per, mesh)
+    return (per * w).sum() / _weight_sum(w, mesh)
 
 
 def ssim_mel_loss(mel_out: torch.Tensor, mel_target: torch.Tensor,
-                  w: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  w: Optional[torch.Tensor] = None,
+                  mesh: Optional[PM.Mesh] = None) -> torch.Tensor:
     """1 - SSIM of the mel images [B, n_mels, T], in f32: the reference's
     commented-out ``-ssim(mel_out, mel_target)`` term (loss_function.py:10,
     24) shifted by 1 to be non-negative; the (weighted) mean over the
-    batch."""
+    (global) batch."""
     s = ssim(mel_out[:, None].float(), mel_target[:, None].float(),
              size_average=w is None)
     if w is None:
-        return 1.0 - s
-    return ((1.0 - s) * w).sum() / torch.clamp_min(w.sum(), 1.0)
+        return (1.0 - s) / _n_data(mesh)
+    return ((1.0 - s) * w).sum() / _weight_sum(w, mesh)
 
 
 def tacotron2_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, Any],
-                   cfg: TacotronConfig, iteration) -> Dict[str, torch.Tensor]:
+                   cfg: TacotronConfig, iteration,
+                   mesh: Optional[PM.Mesh] = None
+                   ) -> Dict[str, torch.Tensor]:
     """dict(total, mel, gate, align, align_bert[, softdtw][, ssim]).  An
     optional ``batch["weight"]`` [B] leaves out the duplicates that fill a
-    partial batch; all ones gives the plain means."""
+    partial batch; all ones gives the plain means.  With a ``mesh``, this
+    rank's share of each global loss (see the module docstring)."""
     mel_target = batch["mels"]
     gate_target = batch["gate_target"]
     w = batch.get("weight")
     if w is None:
-        mel_loss = (torch.mean((outputs["mel"] - mel_target) ** 2)
-                    + torch.mean((outputs["mel_postnet"] - mel_target) ** 2))
-        gate_loss = bce_with_logits(outputs["gate"].reshape(-1),
-                                    gate_target.reshape(-1)).mean()
+        mel_loss = (_mean((outputs["mel"] - mel_target) ** 2, mesh)
+                    + _mean((outputs["mel_postnet"] - mel_target) ** 2,
+                            mesh))
+        gate_loss = _mean(bce_with_logits(outputs["gate"], gate_target),
+                          mesh)
     else:
-        wsum = torch.clamp_min(w.sum(), 1.0)
+        wsum = _weight_sum(w, mesh)
 
         def wmean(x):  # per-sample mean over non-batch dims, then weighted
             return (x.reshape(x.shape[0], -1).mean(dim=1) * w).sum() / wsum
@@ -111,11 +144,12 @@ def tacotron2_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, Any],
               "align_bert": zero}
     total = mel_loss + gate_loss
     if cfg.softdtw_loss_weight > 0.0:
-        sdtw = softdtw_mel_loss(outputs["mel_postnet"], mel_target, cfg, w)
+        sdtw = softdtw_mel_loss(outputs["mel_postnet"], mel_target, cfg, w,
+                                mesh)
         losses["softdtw"] = sdtw
         total = total + cfg.softdtw_loss_weight * sdtw
     if cfg.ssim_loss_weight > 0.0:
-        sl = ssim_mel_loss(outputs["mel_postnet"], mel_target, w)
+        sl = ssim_mel_loss(outputs["mel_postnet"], mel_target, w, mesh)
         losses["ssim"] = sl
         total = total + cfg.ssim_loss_weight * sl
     if cfg.align_loss and "align_target" in batch:
@@ -126,10 +160,10 @@ def tacotron2_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, Any],
         # the axes agree (as the JAX package does)
         bert_ok = outputs["alignments_bert"].shape == target.shape
         if cfg.align_loss == "L2":
-            a = torch.mean((outputs["alignments"] - target) ** 2)
-            ab = (torch.mean((outputs["alignments_bert"] - target) ** 2)
+            a = _mean((outputs["alignments"] - target) ** 2, mesh)
+            ab = (_mean((outputs["alignments_bert"] - target) ** 2, mesh)
                   if bert_ok else zero)
-        elif cfg.align_loss == "KL":
+        elif cfg.align_loss == "KL":  # a sum over the batch: a share as is
             a = _masked_kl(outputs["alignments"], target,
                            batch["text_lengths"], batch["output_lengths"])
             ab = (_masked_kl(outputs["alignments_bert"], target,
@@ -203,9 +237,11 @@ def make_optimizer(cfg: TacotronConfig, learning_rate=None) -> Optimizer:
     wd, max_norm = cfg.weight_decay, cfg.grad_clip_thresh
     core = adam(0.9, 0.999, 1e-8, lambda count: lr)
 
-    def update(grads, state: AdamState, params):
+    def update(grads, state: AdamState, params, norm=global_norm):
+        """``norm`` takes the tree of g + wd * p (a rank's slices on a
+        model axis: ``parallel.mesh.sharded_norm``)."""
         g = tree_map(lambda g, p: g + wd * p, grads, params)
-        g_norm = global_norm(g)
+        g_norm = norm(g)
         trigger = g_norm < max_norm
         g = tree_map(lambda t: torch.where(trigger, t, (t / g_norm) * max_norm),
                      g)
@@ -230,39 +266,72 @@ def create_train_state(generator: torch.Generator, cfg: TacotronConfig,
     return TrainState(0, params, bn, tx.init(params)), tx
 
 
-def train_step(state: TrainState, batch, cfg: TacotronConfig, tx: Optimizer,
-               *, generator: Optional[torch.Generator] = None,
-               randomness: Optional[Dict] = None):
-    """One optimization step: forward, loss, backward, update.  The
-    randomness is drawn from ``generator`` unless given (see
-    ``M.make_randomness``).  Returns (new state, metrics): the losses,
-    ``grad_norm`` (of the raw gradients) and ``skipped`` (1.0 when a
-    non-finite norm skipped the update), all tensors on the device."""
-    params = tree_map(lambda p: p.detach().requires_grad_(True),
-                      state.params)
+def global_metrics(losses: Dict[str, torch.Tensor],
+                   mesh: Optional[PM.Mesh]) -> Dict[str, torch.Tensor]:
+    """The global losses from each rank's shares: one sum over the data
+    group, detached."""
+    keys = list(losses)
+    v = torch.stack([losses[k].detach().float() for k in keys])
+    if mesh is not None:
+        v = mesh.data_sum(v)
+    return dict(zip(keys, v.unbind()))
+
+
+def loss_and_grads(state: TrainState, batch, cfg: TacotronConfig, *,
+                   mesh: Optional[PM.Mesh] = None, plan=None,
+                   generator: Optional[torch.Generator] = None,
+                   randomness: Optional[Dict] = None):
+    """Forward, loss and backward of one step: (the global losses, the full
+    gradients summed over the data axis (the same on every rank), the new
+    BN state).  ``plan``
+    (``parallel.mesh.tacotron_param_sharding``) names the leaves stored as
+    slices; None: all replicated."""
+    mesh = mesh or PM.Mesh()
+    full = PM.gather(state.params, plan, mesh)
+    params = tree_map(lambda p: p.detach().requires_grad_(True), full)
     outputs, new_bn = M.forward(params, state.bn_state, cfg, batch,
                                 training=True, generator=generator,
-                                randomness=randomness)
-    losses = tacotron2_loss(outputs, batch, cfg, state.step)
+                                randomness=randomness, mesh=mesh)
+    losses = tacotron2_loss(outputs, batch, cfg, state.step, mesh)
     p_leaves = tree_leaves(params)
     g_leaves = torch.autograd.grad(losses["total"], p_leaves,
                                    allow_unused=True)
-    g_leaves = [torch.zeros_like(p) if g is None else g
+    # contiguous, as sum_gradients' buffer is: the norm's rounding then
+    # does not depend on the mesh
+    g_leaves = [torch.zeros_like(p) if g is None else g.contiguous()
                 for g, p in zip(g_leaves, p_leaves)]
     it = iter(g_leaves)
-    grads = tree_map(lambda _: next(it), state.params)
+    grads = PM.sum_gradients(tree_map(lambda _: next(it), full), plan, mesh)
+    new_bn = tree_map(lambda t: t.detach(), new_bn)
+    return global_metrics(losses, mesh), grads, new_bn
+
+
+def train_step(state: TrainState, batch, cfg: TacotronConfig, tx: Optimizer,
+               *, mesh: Optional[PM.Mesh] = None, plan=None,
+               generator: Optional[torch.Generator] = None,
+               randomness: Optional[Dict] = None):
+    """One optimization step: forward, loss, backward, update.  The
+    randomness is drawn from ``generator`` unless given (see
+    ``M.make_randomness``).  ``mesh`` and ``plan``: see
+    ``loss_and_grads``.  Returns (new state, metrics): the losses,
+    ``grad_norm`` (of the raw gradients) and ``skipped`` (1.0 when a
+    non-finite norm skipped the update), all tensors on the device."""
+    mesh = mesh or PM.Mesh()
+    metrics, grads, new_bn = loss_and_grads(
+        state, batch, cfg, mesh=mesh, plan=plan, generator=generator,
+        randomness=randomness)
     with torch.no_grad():
         grad_norm = global_norm(grads)
         finite = torch.isfinite(grad_norm)
-        updates, new_opt = tx.update(grads, state.opt_state, state.params)
+        updates, new_opt = tx.update(
+            PM.shard(grads, plan, mesh), state.opt_state, state.params,
+            norm=lambda t: PM.sharded_norm(t, plan, mesh))
         keep = lambda new, old: torch.where(finite, new, old)
         new_params = tree_map(lambda p, u: keep(p + u, p), state.params,
                               updates)
         new_opt = AdamState(keep(new_opt.count, state.opt_state.count),
                             tree_map(keep, new_opt.mu, state.opt_state.mu),
                             tree_map(keep, new_opt.nu, state.opt_state.nu))
-        new_bn = tree_map(lambda t: t.detach(), new_bn)
-        metrics = {k: v.detach() for k, v in losses.items()}
         metrics["grad_norm"] = grad_norm
         metrics["skipped"] = (~finite).to(torch.float32)
     return TrainState(state.step + 1, new_params, new_bn, new_opt), metrics
@@ -270,15 +339,19 @@ def train_step(state: TrainState, batch, cfg: TacotronConfig, tx: Optimizer,
 
 @torch.no_grad()
 def eval_step(state: TrainState, batch, cfg: TacotronConfig, *,
+              mesh: Optional[PM.Mesh] = None, plan=None,
               generator: Optional[torch.Generator] = None,
               randomness: Optional[Dict] = None):
     """Forward (BN running statistics, no dropout but the prenet's) and the
-    losses, with no autograd: the soft-DTW term takes K3.  Returns
-    (losses, outputs)."""
-    outputs, _ = M.forward(state.params, state.bn_state, cfg, batch,
-                           training=False, generator=generator,
-                           randomness=randomness)
-    return tacotron2_loss(outputs, batch, cfg, state.step), outputs
+    losses, with no autograd: the soft-DTW term takes K3.  Returns (the
+    global losses, this rank's outputs)."""
+    mesh = mesh or PM.Mesh()
+    outputs, _ = M.forward(PM.gather(state.params, plan, mesh),
+                           state.bn_state, cfg, batch, training=False,
+                           generator=generator, randomness=randomness,
+                           mesh=mesh)
+    losses = tacotron2_loss(outputs, batch, cfg, state.step, mesh)
+    return global_metrics(losses, mesh), outputs
 
 
 def make_gate_target(output_lengths: torch.Tensor, max_len: int):

@@ -12,6 +12,13 @@ opt_state} (tensors, lists and dicts only, so it loads with
 The JAX package writes Orbax directories, which cannot be read without
 JAX; ``load_checkpoint`` says so.  To cross formats, move the arrays
 through numpy (``utils/import_jax.py``).
+
+Multi-rank training (``parallel.mesh``) keeps this one-file format: every
+rank passes the full state (``gather_train_state``) and its mesh, rank
+(0, 0) writes, and a barrier keeps any rank from reading a half-written
+file; every rank loads the whole file, then takes its slices
+(``shard_train_state``).  So a checkpoint of a 2x2 run loads on one card,
+and the other way round.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from tacotron2_subword_tpu_torch.parallel import mesh as PM
 from tacotron2_subword_tpu_torch.train_lib import AdamState, TrainState
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 from tacotron2_subword_tpu_torch.utils.tree import to_device, tree_leaves
@@ -53,13 +61,25 @@ def scan_checkpoint(output_dir: str,
 def save_checkpoint(state: TrainState, output_dir: str, *,
                     val_loss: float = float("inf"),
                     learning_rate: float = 0.0,
-                    name: Optional[str] = None) -> str:
-    """Write ``state`` (tensors copied to the CPU) to
+                    name: Optional[str] = None,
+                    mesh: Optional[PM.Mesh] = None) -> str:
+    """Write ``state`` (the full state; tensors copied to the CPU) to
     ``output_dir/checkpoint_{step}`` or ``output_dir/name``; returns the
-    directory."""
+    directory.  With a ``mesh`` every rank calls it: rank (0, 0) writes,
+    then all pass a barrier."""
     step = int(state.step)
     path = (os.path.join(os.path.abspath(output_dir), name)
             if name else checkpoint_path(output_dir, step))
+    if mesh is None or mesh.is_main:
+        _write(state, path, val_loss, learning_rate)
+    if mesh is not None:
+        PM.collective_barrier(mesh)
+    return path
+
+
+def _write(state: TrainState, path: str, val_loss: float,
+           learning_rate: float) -> None:
+    step = int(state.step)
     os.makedirs(path, exist_ok=True)
     opt = state.opt_state
     tree = {"step": step, "params": state.params, "bn_state": state.bn_state,
@@ -70,7 +90,6 @@ def save_checkpoint(state: TrainState, output_dir: str, *,
     with open(os.path.join(path, META_FILE), "w") as f:
         json.dump({"iteration": step, "val_loss": float(val_loss),
                    "learning_rate": float(learning_rate)}, f)
-    return path
 
 
 def load_checkpoint(path: str, device="cuda"
@@ -116,9 +135,11 @@ def warm_start(path: str, state: TrainState,
 class BestTracker:
     """Keeps ``output_dir/checkpoint_best``: the lowest validation loss so
     far, read from its ``meta.json`` at start (reference
-    train.py:366-368)."""
+    train.py:366-368).  With a ``mesh`` every rank keeps one, with the
+    same (global) losses, and rank (0, 0) writes."""
 
-    def __init__(self, output_dir: str):
+    def __init__(self, output_dir: str, mesh: Optional[PM.Mesh] = None):
+        self.mesh = mesh
         self.output_dir = os.path.abspath(output_dir)
         self.best = float("inf")
         best_meta = os.path.join(self.output_dir, "checkpoint_best",
@@ -135,6 +156,6 @@ class BestTracker:
             self.best = val_loss
             save_checkpoint(state, self.output_dir, val_loss=val_loss,
                             learning_rate=learning_rate,
-                            name="checkpoint_best")
+                            name="checkpoint_best", mesh=self.mesh)
             return True
         return False

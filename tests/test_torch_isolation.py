@@ -34,7 +34,7 @@ def test_port_has_the_slice_modules():
                  "models.waveglow", "apps.train_waveglow", "utils.onnx_lite",
                  "models.vocoder_runtimes", "tools.export_hifigan_onnx",
                  "apps.preprocess", "apps.demo", "apps.check_bert_emb",
-                 "apps.dump_phone_id_map"):
+                 "apps.dump_phone_id_map", "parallel", "parallel.mesh"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
     # the G2P engine is built from the port's own copy of the C++ source,
     # check_bert_emb's default tokenizer is the port's own copy of the asset
