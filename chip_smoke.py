@@ -56,13 +56,21 @@ the port at full width:
    meshes (2, 1), (1, 2) and (2, 2) of ranks sharing the card over one gloo
    group, each held to the single-process step (loss, gradients, BN
    statistics), with K2 and K3 counted on every rank, per-rank peak memory
-   and the stored bytes of the model-axis slices.
+   and the stored bytes of the model-axis slices;
+ - the synthetic-corpus tools (``phase_synthetic_tools``):
+   make_synthetic_dataset (its mel against ops/stft on the card), the
+   training CLI on that corpus (K2 per step, K3 per validation batch),
+   eval_synthetic's int8 sweep of its checkpoints (K1 counted, the resumed
+   sweep skipping every row, one f32 row card vs CPU) and
+   gan_batch_scaling at B = 4, 16, 32.
 
 ``python3 chip_smoke.py --k1-splits`` builds the kernels and times K1 at
 every number of K splits instead (the table behind ``ops/quant.k1_plan``);
 ``--cli-nondeterminism`` runs the training CLI of ``phase_multi_rank``
 twice with PyTorch's default algorithms and prints how far its losses
-move run to run.
+move run to run; ``--gan-grad-trace`` splits the f32 GAN step's generator
+gradient, card against CPU, by loss term, with cuDNN on and off
+(``gan_grad_trace``).
 
 Any failure raises, so the exit code is not 0.  The line before the last
 names the card and its power limit; the last is one JSON object naming the
@@ -1884,7 +1892,8 @@ def phase_after_training(Q, SD, dev, gpu):
     print("after-training sweep", json.dumps(report["sweep"]))
     shutil.rmtree(root, ignore_errors=True)
     return {"k1": k1_infer + k1_sweep, "k1_infer": k1_infer,
-            "k1_sweep": k1_sweep, "k3": k3_eval, "k3_shapes": shapes}
+            "k1_sweep": k1_sweep, "k3": k3_eval, "k3_shapes": shapes,
+            "gan_step_s": report["gan"]["step_s"]}
 
 
 def phase_gate_cost(TM, TI, L, params, bn, cfg, dev, gpu):
@@ -3080,6 +3089,326 @@ def phase_multi_rank(dev, gpu, cfg_fields=None, hparams=MR_HPARAMS,
             "k3_per_rank": summary["k3_launches_per_rank"]}
 
 
+SYN_TRAIN, SYN_VAL, SYN_SEED = 64, 16, 0   # utterances of the corpus
+SYN_ITERS = 6          # training CLI iterations at B=8, bf16, soft-DTW 1.0
+SYN_HPARAMS = "softdtw_loss_weight:1.0-iters_per_checkpoint:3"
+SYN_STEPS, SYN_GATES = 256, "0.5,0.25"     # the int8 sweep
+SYN_MEL_TOL = 2e-3     # the corpus's numpy mel vs ops/stft on the card
+# the f32 row, card vs CPU with the same prenet masks, as phase_whole_path
+# (B=2, 50 steps, gate never firing): mel_postnet max|d| <= 1e-3 *
+# max|ref|, the row's softdtw and mcd within 1e-3 relative, equal frames
+# and gate_ok
+SYN_PARITY_N, SYN_PARITY_STEPS, SYN_PARITY_TOL = 2, 50, 1e-3
+SYN_GAN_BATCHES, SYN_GAN_ITERS = (4, 16, 32), 5
+# gan_batch_scaling's B=16 step against phase_after_training's B=16 step
+# (the same step and shapes; a chained run against synced calls, another
+# state): within 25 %
+SYN_GAN_VS_AFTER = 0.25
+
+
+def fixed_prenet_masks(TM, masks):
+    """Every decode (each makes its own generator) takes ``masks`` from its
+    first step on, on the decode's device; returns the undo."""
+    streams, keep = {}, []
+    real = TM._prenet_masks
+
+    def fixed(generator, n, shape, dtype, device):
+        if id(generator) not in streams:
+            keep.append(generator)
+            streams[id(generator)] = iter(masks)
+        return next(streams[id(generator)]).to(device=device, dtype=dtype)
+    TM._prenet_masks = fixed
+    return lambda: setattr(TM, "_prenet_masks", real)
+
+
+def phase_synthetic_tools(Q, SD, dev, gpu, gan_step_s):
+    """The synthetic-corpus tools of the port at full width (the default
+    TacotronConfig, HiFi-GAN v1):
+     (a) make_synthetic_dataset, 64 + 16 utterances: ms per utterance;
+         each val utterance's float waveform, made again from the tool's
+         random stream, is the written int16 wav to the bit, and its
+         corpus mel (numpy, float64) agrees with ops/stft.mel_spectrogram
+         on the card within SYN_MEL_TOL (the int16 wav's distance is
+         reported beside it);
+     (b) the training CLI on that corpus, bf16, soft-DTW 1.0, B=8, 6
+         iterations with validation and a checkpoint every 3: K2 == 6,
+         K3 == 2 x the validation batches, s/it after the first;
+     (c) eval_synthetic --sweep-dir over checkpoint_3 and checkpoint_6,
+         int8, 16 utterances, 256 steps, gates 0.5 and 0.25: K1 == 2 x the
+         decode steps, one CSV row per (checkpoint, gate); run again, every
+         row is skipped and nothing is decoded; one f32 row on the card
+         against the tool with --cpu, the same prenet masks on both
+         (SYN_PARITY_*);
+     (d) gan_batch_scaling at B = 4, 16, 32: ms/it, segments/s, audio-s/s
+         and peak memory per B, B=16 held to ``gan_step_s`` (the step time
+         of phase_after_training).
+    train_tokenizer and tools/orbax_to_torch.py need tokenizers and JAX:
+    host-only, tested on the CPU.  Returns {k1, k2, k3: launches,
+    report}."""
+    import contextlib
+    import csv
+    import io
+    import shutil
+    from pathlib import Path
+    from scipy.io.wavfile import read as wavread
+    from tacotron2_subword_tpu_torch.apps import train as TAPP
+    from tacotron2_subword_tpu_torch.config import create_config
+    from tacotron2_subword_tpu_torch.data import dataset as TD
+    from tacotron2_subword_tpu_torch.models import tacotron2 as TM
+    from tacotron2_subword_tpu_torch.ops import stft as S
+    from tacotron2_subword_tpu_torch.tools import eval_synthetic as TES
+    from tacotron2_subword_tpu_torch.tools import gan_batch_scaling as TGB
+    from tacotron2_subword_tpu_torch.tools import make_synthetic_dataset as MS
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "_runs" / "synthetic"
+    shutil.rmtree(root, ignore_errors=True)
+    data, run = root / "data", root / "run"
+    report = {"gpu": gpu}
+
+    # (a) the corpus
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        MS.main(["--out", str(data), "--n-train", str(SYN_TRAIN),
+                 "--n-val", str(SYN_VAL), "--seed", str(SYN_SEED)])
+    corpus_s = time.perf_counter() - t0
+    mel_err, int16_err, frames = [], [], []
+    for i in range(SYN_VAL):
+        rng = np.random.RandomState(SYN_SEED * 999983 + SYN_TRAIN + i)
+        _, _, _, _, mel, wav = MS.make_utterance(rng)
+        _, w16 = wavread(str(data / "val" / "wav" / f"{i}.wav"))
+        stored = np.load(data / "val" / "mels" / f"ljspeech-mel-{i+1:05d}.npy")
+        if not (np.array_equal(w16, np.clip(wav * 32768.0, -32768, 32767
+                                            ).astype(np.int16))
+                and np.array_equal(stored, mel)):
+            raise AssertionError(f"synthetic corpus: val {i} is not the "
+                                 f"tool's stream")
+        n = mel.shape[1]
+        on_card = lambda w: S.mel_spectrogram(torch.from_numpy(
+            np.ascontiguousarray(w, np.float32))[None].to(dev))[0, :, :n]
+        mel_err.append(float(np.abs(on_card(wav).cpu().numpy() - mel).max()))
+        int16_err.append(float(np.abs(on_card(w16 / 32768.0).cpu().numpy()
+                                      - mel).max()))
+        frames.append(n)
+    if max(mel_err) > SYN_MEL_TOL:
+        raise AssertionError(f"synthetic corpus: numpy mel vs the card "
+                             f"{max(mel_err)} > {SYN_MEL_TOL}")
+    report["corpus"] = {
+        "utterances": SYN_TRAIN + SYN_VAL, "wall_s": corpus_s,
+        "ms_per_utterance": 1e3 * corpus_s / (SYN_TRAIN + SYN_VAL),
+        "val_frames": frames, "mel_vs_card_max_abs": max(mel_err),
+        "int16_wav_mel_vs_card_max_abs": max(int16_err)}
+    print("synthetic (a) corpus", json.dumps(report["corpus"]))
+
+    # (b) the training CLI on it
+    hp = f"[{SYN_HPARAMS}]"
+    cfg = create_config(hp)
+    val_batches = len(list(TD.BucketedLoader(
+        TD.BertTacotron2Dataset(TD.load_filepaths(str(data / "val.txt")),
+                                *(str(data / "val" / d) for d in
+                                  ("mels", "sub", "cls"))),
+        batch_size=8, frames_per_step=cfg.n_frames_per_step)))
+    tr, va = data / "train", data / "val"
+    argv = ["-o", str(run), "--train-list", str(data / "train.txt"),
+            "--val-list", str(data / "val.txt"), "--mel-dir",
+            str(tr / "mels"), "--sub-dir", str(tr / "sub"), "--cls-dir",
+            str(tr / "cls"), "--val-mel-dir", str(va / "mels"),
+            "--val-sub-dir", str(va / "sub"), "--val-cls-dir",
+            str(va / "cls"), "--batch-size", "8", "--max-iters",
+            str(SYN_ITERS), "--hparams", hp]
+    SD.grad_launches = SD.fwd_launches = 0
+    t0 = time.perf_counter()
+    res, _ = _run_cli(TAPP, argv)
+    train_wall = time.perf_counter() - t0
+    k2, k3 = SD.grad_launches, SD.fwd_launches
+    ckpts = [run / f"checkpoint_{n}" for n in (3, 6)]
+    if not (res["iterations"] == SYN_ITERS
+            and np.isfinite(res["losses"]).all()
+            and np.isfinite(res["val_loss"])
+            and all((c / "state.pt").is_file() for c in ckpts)):
+        raise AssertionError(f"synthetic train: {res}")
+    if k2 != SYN_ITERS or k3 != 2 * val_batches:
+        raise AssertionError(f"synthetic train: K2 {k2} in {SYN_ITERS} "
+                             f"steps, K3 {k3} in 2 x {val_batches} "
+                             f"validation batches")
+    report["train"] = {
+        "iterations": SYN_ITERS, "losses": res["losses"],
+        "val_loss": res["val_loss"], "iter_s": res["iter_s"],
+        "s_per_it_after_first": float(np.mean(res["iter_s"][1:])),
+        "wall_s": train_wall, "val_batches": val_batches,
+        "k2_launches": k2, "k3_launches": k3}
+    print("synthetic (b) train", json.dumps(report["train"]))
+
+    # (c) the int8 sweep over both checkpoints, then again (all skipped)
+    csv_path = root / "sweep.csv"
+    sweep = ["--data", str(data), "--sweep-dir", str(run), "--hparams",
+             "[decode_quant:int8]", "--n", str(SYN_VAL),
+             "--max-steps", str(SYN_STEPS), "--gate-thresholds", SYN_GATES,
+             "--out-csv", str(csv_path)]
+    Q.launches = 0
+    t0 = time.perf_counter()
+    res_c = TES.main(sweep)
+    sweep_wall = time.perf_counter() - t0
+    k1 = Q.launches
+    steps = [d["steps_run"] for d in res_c["decodes"]]
+    with open(csv_path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    gates = [float(g) for g in SYN_GATES.split(",")]
+    want = [(c.name, g) for c in ckpts for g in gates]
+    if [(r["checkpoint"], float(r["gate"])) for r in rows] != want \
+            or len(steps) != len(want) or k1 != 2 * sum(steps) \
+            or not all(np.isfinite(float(r[k])) for r in rows
+                       for k in ("softdtw", "mcd")):
+        raise AssertionError(f"synthetic sweep: rows {rows}, K1 {k1} in "
+                             f"{steps} steps")
+    Q.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        again = TES.main(sweep)
+    with open(csv_path, newline="") as f:
+        rows_again = list(csv.DictReader(f))
+    if again["decodes"] or Q.launches or rows_again != rows \
+            or buf.getvalue().count("already in ledger") != len(ckpts):
+        raise AssertionError(f"synthetic sweep resume: {again['decodes']}, "
+                             f"K1 {Q.launches}, {buf.getvalue()}")
+
+    # one f32 row (checkpoint_6) on the card and on the CPU, the same masks
+    f32 = ["--data", str(data), "--checkpoint", str(ckpts[1]), "--hparams",
+           "[parity_mode:true]", "--n", str(SYN_PARITY_N),
+           "--max-steps", str(SYN_PARITY_STEPS), "--gate-thresholds", "1.1"]
+    gen = torch.Generator().manual_seed(TES.MASK_SEED)
+    masks = [TM._prenet_masks(gen, 4, (SYN_PARITY_N, cfg.prenet_dim),
+                              torch.float32, torch.device("cpu"))
+             for _ in range(SYN_PARITY_STEPS)]
+    undo = fixed_prenet_masks(TM, masks)
+    try:
+        parity = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            extra = ["--cpu"] if d.type == "cpu" else []
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = TES.main(f32 + ["--out-csv", str(root / f"{name}.csv")]
+                             + extra)
+            parity[name] = (r["rows"], r["mel_postnet"])
+    finally:
+        undo()
+    (rc, mc), (rp, mp) = parity["card"], parity["cpu"]
+    mel_d = float(np.abs(mc - mp).max())
+    mel_tol = SYN_PARITY_TOL * float(np.abs(mp).max())
+    rel = lambda k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(rc, rp))
+    row_err = {k: rel(k) for k in ("softdtw", "mcd")}
+    if not (mel_d <= mel_tol and all(v <= SYN_PARITY_TOL
+                                     for v in row_err.values())
+            and [(a["frames_pred"], a["gate_ok"]) for a in rc]
+            == [(b["frames_pred"], b["gate_ok"]) for b in rp]):
+        raise AssertionError(f"synthetic f32 row card vs CPU: mel {mel_d} > "
+                             f"{mel_tol} or rows {row_err}: {rc} / {rp}")
+    report["sweep"] = {
+        "rows": rows, "decodes": res_c["decodes"], "k1_launches": k1,
+        "wall_s": sweep_wall, "f32_row_card_vs_cpu": {
+            "mel_postnet_max_abs": mel_d, "mel_postnet_tol": mel_tol,
+            **{f"{k}_rel": v for k, v in row_err.items()}}}
+    print("synthetic (c) sweep", json.dumps(report["sweep"]))
+
+    # (d) GAN step against the batch size
+    rows_d = TGB.measure(SYN_GAN_BATCHES, SYN_GAN_ITERS, warmup=2, device=dev)
+    r16 = next(r for r in rows_d if r["B"] == 16)
+    if not all(np.isfinite(r["loss"]) for r in rows_d) or abs(
+            r16["s_per_it"] / gan_step_s - 1) > SYN_GAN_VS_AFTER:
+        raise AssertionError(f"gan_batch_scaling: {rows_d} against the "
+                             f"after-training step {gan_step_s} s")
+    report["gan_batch_scaling"] = {
+        "rows": [{**r, "ms_per_it": r["s_per_it"] * 1e3} for r in rows_d],
+        "after_training_b16_step_s": gan_step_s}
+    print("synthetic (d) gan_batch_scaling",
+          json.dumps(report["gan_batch_scaling"]))
+    print("synthetic: train_tokenizer (needs tokenizers) and "
+          "tools/orbax_to_torch.py (needs JAX, orbax) are host-only; they "
+          "are tested on the CPU (tests/test_torch_synthetic_tools.py, "
+          "tests/test_torch_orbax_eval.py), not run here")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print("synthetic phase", json.dumps({"phase_s": report["phase_s"],
+                                          "gpu": gpu}))
+    shutil.rmtree(root, ignore_errors=True)
+    return {"k1": k1, "k2": k2, "k3": k3, "report": report}
+
+
+# G's terms (adversarial, feature, 45 x mel L1) in --gan-grad-trace: all,
+# and each alone (gan_step's ``terms``)
+GAN_TERMS = {"all": (1.0, 1.0, 1.0), "adv": (1.0, 0.0, 0.0),
+             "feat": (0.0, 1.0, 0.0), "mel": (0.0, 0.0, 1.0)}
+
+
+def gan_grad_trace(dev, gpu, B=2, depths=(8, 64)):
+    """``--gan-grad-trace``: how far G's f32 gradient of one GAN step lies
+    from the same step in f64.  gan_batch_scaling's seeded state trains on
+    the card at B=8 (the seeded generator's output is so quiet that its
+    log-mels sit on the 1e-5 clamp, where the mel term has no gradient);
+    after each number of steps in ``depths``, on a SyntheticSegments batch
+    of B: G's gradient (the one handed to its optimizer) with the
+    generator's terms weighted as GAN_TERMS, in f32 on the card with cuDNN
+    on and off, in f64 on the card and in f32 on the CPU, each against the
+    witness: the step in f64 on the CPU (the f32 weights, inputs and STFT
+    constants widened, so it is the exact gradient of the function the f32
+    runs round).  Per term: the worst leaf (and its path) by max|d| over
+    its max|g|, and the worst |d| over |g|."""
+    from tacotron2_subword_tpu_torch import train_lib as TT
+    from tacotron2_subword_tpu_torch.apps import train_hifigan as TTH
+    from tacotron2_subword_tpu_torch.models import hifigan as HG
+    from tacotron2_subword_tpu_torch.tools import gan_batch_scaling as TGB
+    from tacotron2_subword_tpu_torch.utils.tree import (
+        cast_floats, to_device, tree_leaves)
+    h, cpu = HG.HifiganConfig(), torch.device("cpu")
+    state, tx = TGB.init_state(h, dev)
+    ds = TTH.SyntheticSegments(32)
+    warm = [torch.from_numpy(a).to(dev) for a in ds.sample_batch(8)]
+    mel, audio = (torch.from_numpy(a) for a in ds.sample_batch(B))
+
+    def g_grads(st, d, w, f64=False):
+        got = []
+
+        def update(g, s, p=None):
+            got.append(g)
+            return tx.update(g, s, p)
+        st, m, a = to_device(st, d), mel.to(d), audio.to(d)
+        if f64:
+            st, m, a = cast_floats(st, torch.float64), m.double(), a.double()
+        TTH.gan_step(st, m, a, h, TT.Optimizer(tx.init, update), tx, terms=w)
+        return [t.detach().cpu().double() for t in tree_leaves(got[0])]
+
+    paths = _tree_paths(state.gen)
+
+    def err(a_list, b_list):
+        rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+               for a, b in zip(a_list, b_list)]
+        worst = int(np.argmax(rel))
+        return {"max_rel": rel[worst], "worst": paths[worst],
+                "norm_rel": max((a - b).norm().item()
+                                / max(b.norm().item(), 1e-300)
+                                for a, b in zip(a_list, b_list))}
+
+    out, done = {}, 0
+    for depth in depths:
+        for _ in range(depth - done):
+            state, _ = TTH.gan_step(state, *warm, h, tx, tx)
+        done = depth
+        st = to_device(state, cpu)
+        out[depth] = {}
+        for term, w in GAN_TERMS.items():
+            ref = g_grads(st, cpu, w, f64=True)
+            row = {"cpu_f32": err(g_grads(st, cpu, w), ref),
+                   "card_f64": err(g_grads(st, dev, w, f64=True), ref)}
+            for cudnn in (True, False):
+                torch.backends.cudnn.enabled = cudnn
+                try:
+                    row["card_cudnn" if cudnn else "card_no_cudnn"] = err(
+                        g_grads(st, dev, w), ref)
+                finally:
+                    torch.backends.cudnn.enabled = True
+            out[depth][term] = row
+            print("gan grad trace", json.dumps({"steps": depth, "term": term,
+                                                **row, "gpu": gpu}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3113,6 +3442,14 @@ def main() -> int:
 
     if "--cli-nondeterminism" in sys.argv[1:]:
         cli_nondeterminism(gpu)
+        print(gpu)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--gan-grad-trace" in sys.argv[1:]:
+        gan_grad_trace(dev, gpu)
         print(gpu)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3180,7 +3517,14 @@ def main() -> int:
     #     step, K2 and K3 counted on every rank
     mr = phase_multi_rank(dev, gpu)
 
-    # 11. the kernels line: K1 per decoder step of the served batch (B=4,
+    # 11. the synthetic-corpus tools: make_synthetic_dataset -> the
+    #     training CLI on it (K2 per step, K3 per validation batch) ->
+    #     eval_synthetic's int8 sweep (K1 2 x per decode step) ->
+    #     gan_batch_scaling at B = 4, 16, 32
+    syn = phase_synthetic_tools(Q, SD, dev, gpu,
+                                gan_step_s=after["gan_step_s"])
+
+    # 12. the kernels line: K1 per decoder step of the served batch (B=4,
     #    bf16 x): the attention-LSTM call plus the decoder-LSTM call, and the
     #    same at B=128; K2 and K3 at the train step's shape, 8 x 128 x 128
     def k1_step(B):
@@ -3200,13 +3544,14 @@ def main() -> int:
           "source": "tacotron2_subword_tpu_torch/csrc/dequant_int8_matmul.cu",
           "replaces": "tacotron2_subword_tpu/ops/quant.py:74",
           "launches": (launches + cli_launches + after["k1"] + att["k1"]
-                       + voc["k1_onnx"] + voc["k1_demo"]),
+                       + voc["k1_onnx"] + voc["k1_demo"] + syn["k1"]),
           "launches_by_path": {"serve": launches, "cli": cli_launches,
                                "after_training_inference": after["k1_infer"],
                                "checkpoint_sweep": after["k1_sweep"],
                                "attention_variants": att["k1"],
                                "onnx_cli_line": voc["k1_onnx"],
-                               "demo": voc["k1_demo"]},
+                               "demo": voc["k1_demo"],
+                               "synthetic": syn["k1"]},
           "cli_launches": cli_launches,
           "max_abs_err": max(r["max_abs_err"] for r in k1_rows
                              if r["x"] == "bf16"),
@@ -3246,14 +3591,15 @@ def main() -> int:
                          if key == "k2" else
                          "tacotron2_subword_tpu/ops/softdtw.py:507"),
             "launches": (step_launches + real_launches + eval_launches
-                         + att_launches + mr[key]),
+                         + att_launches + mr[key] + syn[key]),
             "launches_by_path": {"train_step": step_launches,
                                  "train_cli_real_data": real_launches,
                                  "evaluation": eval_launches,
                                  "attention_variants": att_launches,
                                  "multi_rank": mr[key],
                                  "multi_rank_per_rank_by_mesh":
-                                     mr[f"{key}_per_rank"]},
+                                     mr[f"{key}_per_rank"],
+                                 "synthetic": syn[key]},
             "max_abs_err": max(errs + ([r["max_abs_err"]
                                         for r in after["k3_shapes"]]
                                        if key == "k3" else [])),

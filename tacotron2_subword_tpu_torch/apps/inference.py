@@ -28,7 +28,7 @@ Checkpoints: the port's own ``checkpoint_{step}/`` directories
 ``--hifigan-checkpoint`` also takes ``.onnx`` files (run on the device by
 ``utils/onnx_lite``) and ``.tflite`` files (tensorflow's interpreter); as in
 the JAX CLI, those are scaled by 32768 and not denoised.  The JAX package's
-Orbax directories are not read.
+Orbax directories are not read: ``tools/orbax_to_torch.py`` converts them.
 
 ``synthesize`` is the batched serving core: pre-tokenised requests padded
 to one batch with their true lengths, decoded with per-sample gate stop and
@@ -184,8 +184,10 @@ def load_vocoder(hifigan_checkpoint: Optional[str],
     if hifigan_checkpoint and os.path.isdir(hifigan_checkpoint):
         raise NotImplementedError(
             f"{hifigan_checkpoint}: Orbax generator directories of the JAX "
-            f"package cannot be read without JAX (ROADMAP Queue 1: the "
-            f"Orbax -> port converter); pass a reference g_* torch file")
+            f"package cannot be read without JAX; convert it where JAX is "
+            f"installed: python tools/orbax_to_torch.py --generator "
+            f"{hifigan_checkpoint} --out FILE [--config CONFIG], and pass "
+            f"FILE (a reference g_* torch file)")
     if hifigan_checkpoint:
         h = (HG.HifiganConfig.from_json(hifigan_config)
              if hifigan_config else HG.HifiganConfig())

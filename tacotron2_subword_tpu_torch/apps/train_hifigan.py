@@ -225,12 +225,14 @@ def discriminator_update(disc, opt_d: AdamState, y: torch.Tensor,
 def gan_step(state: GanState, mel: torch.Tensor, audio: torch.Tensor,
              h: HG.HifiganConfig, tx_g: Optimizer, tx_d: Optimizer, *,
              mel_only: bool = False, stft_loss_weight: float = 0.0,
-             mesh: Optional[PM.Mesh] = None):
+             mesh: Optional[PM.Mesh] = None, terms=(1.0, 1.0, 1.0)):
     """One training step on mel [B, n_mels, frames] and audio [B, samples]
     (the JAX CLI's ``step_impl``).  GAN: the discriminators take one Adam
     step on D(y) and D(G(mel)) detached, then the generator one on
     adversarial + feature + 45 x mel L1 against the updated
-    discriminators; the generator's output is computed once for both.
+    discriminators, each term weighted by ``terms`` (1 each in training; a
+    term weighted 0 leaves G's gradient); the generator's output is
+    computed once for both.
     ``mel_only``: the generator alone on 45 x mel L1 (+ ``stft_loss_weight``
     x log-|STFT| L1), d_loss 0.  Returns (new state, {d_loss, g_loss,
     mel_l1}) with the losses as 0-dim tensors on the device.
@@ -260,8 +262,10 @@ def gan_step(state: GanState, mel: torch.Tensor, audio: torch.Tensor,
         _, fr = HG.discriminate(new_disc, y)
     gs, fg = HG.discriminate(new_disc, y_hat)
     loss_mel = share(mel_l1(y_hat, audio))
-    total = (share(HG.generator_adv_loss(gs) + HG.feature_loss(fr, fg))
-             + 45.0 * loss_mel)
+    w_adv, w_feat, w_mel = terms
+    total = (share(w_adv * HG.generator_adv_loss(gs)
+                   + w_feat * HG.feature_loss(fr, fg))
+             + 45.0 * w_mel * loss_mel)
     upd, opt_g = tx_g.update(_grads(total, gen, mesh), state.opt_g)
     return (GanState(_apply(state.gen, upd), new_disc, opt_g, opt_d),
             global_metrics({"d_loss": d_loss, "g_loss": total,

@@ -220,10 +220,11 @@ def frame_signal(y: torch.Tensor, filter_length: int,
 
 def _spectrum(frames: torch.Tensor, filter_length: int, hop_length: int,
               win_length: int):
-    """frames [B, F, N] → (real, imag) [B, cutoff, F]: one f32 matmul
-    against the windowed Fourier basis."""
+    """frames [B, F, N] → (real, imag) [B, cutoff, F]: one matmul against
+    the windowed Fourier basis, in f32 (f64 for f64 frames)."""
     fwd, _ = _bases_on(filter_length, hop_length, win_length, frames.device)
-    spec = torch.matmul(frames.float(), fwd.t()).transpose(1, 2)
+    x = frames if frames.dtype == torch.float64 else frames.float()
+    spec = torch.matmul(x, fwd.to(x.dtype).t()).transpose(1, 2)
     cutoff = filter_length // 2 + 1
     return spec[:, :cutoff], spec[:, cutoff:]
 
@@ -284,7 +285,7 @@ def mel_spectrogram(y: torch.Tensor, sampling_rate: int = 22050,
     mag = stft_magnitude(y, filter_length, hop_length, win_length)
     fb = _mel_basis_on(sampling_rate, filter_length, n_mel_channels,
                        mel_fmin, mel_fmax, mag.device)
-    return dynamic_range_compression(torch.matmul(fb, mag))
+    return dynamic_range_compression(torch.matmul(fb.to(mag.dtype), mag))
 
 
 def inv_mel_spec(mel: torch.Tensor, sampling_rate: int = 22050,
@@ -333,7 +334,7 @@ def hifigan_mel_spectrogram(y: torch.Tensor, n_fft: int = 1024,
     real, imag = _spectrum(frames, n_fft, hop_size, win_size)
     mag = torch.sqrt(real * real + imag * imag + 1e-9)
     fb = _mel_basis_on(sampling_rate, n_fft, num_mels, fmin, fmax, mag.device)
-    return dynamic_range_compression(torch.matmul(fb, mag))
+    return dynamic_range_compression(torch.matmul(fb.to(mag.dtype), mag))
 
 
 def griffin_lim(magnitudes: torch.Tensor, filter_length: int, hop_length: int,

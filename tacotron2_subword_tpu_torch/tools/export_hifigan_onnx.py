@@ -11,7 +11,8 @@ the JAX tool's node order, names and attributes; the time axis is dynamic
 (dim_param "T").  ``--checkpoint`` is a reference ``{'generator':
 state_dict}`` torch file (weight-normed or fused, as ``apps.train_hifigan``
 writes it); without one the generator is a random init from seed 0.  The
-JAX package's Orbax generator directories are not read.
+JAX package's Orbax generator directories are not read:
+``tools/orbax_to_torch.py --generator`` converts them.
 """
 
 from __future__ import annotations
@@ -135,7 +136,9 @@ def main(argv=None) -> int:
     if args.checkpoint and os.path.isdir(args.checkpoint):
         raise NotImplementedError(
             f"{args.checkpoint}: Orbax generator directories of the JAX "
-            f"package cannot be read without JAX; pass a g_* torch file")
+            f"package cannot be read without JAX; convert it with "
+            f"tools/orbax_to_torch.py --generator (where JAX is installed) "
+            f"and pass the g_* torch file it writes")
     if args.checkpoint:
         ck = torch.load(args.checkpoint, map_location="cpu",
                         weights_only=True)

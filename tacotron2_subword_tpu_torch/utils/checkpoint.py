@@ -10,8 +10,8 @@ opt_state} (tensors, lists and dicts only, so it loads with
 ({iteration, val_loss, learning_rate}).
 
 The JAX package writes Orbax directories, which cannot be read without
-JAX; ``load_checkpoint`` says so.  To cross formats, move the arrays
-through numpy (``utils/import_jax.py``).
+JAX; ``load_checkpoint`` says so.  ``tools/orbax_to_torch.py`` (at the
+repository's root; it needs JAX and orbax) converts them to this format.
 
 Multi-rank training (``parallel.mesh``) keeps this one-file format: every
 rank passes the full state (``gather_train_state``) and its mesh, rank
@@ -102,9 +102,9 @@ def load_checkpoint(path: str, device="cuda"
         raise FileNotFoundError(
             f"{path} holds no {STATE_FILE}: it is not a checkpoint of the "
             f"PyTorch port.  Orbax checkpoints of the JAX package cannot be "
-            f"read without JAX; move their arrays to the port through numpy "
-            f"(utils/import_jax.tacotron2_params_from_numpy) and save them "
-            f"with save_checkpoint.")
+            f"read without JAX; convert them where JAX is installed: python "
+            f"tools/orbax_to_torch.py --checkpoint {path} --out-dir DIR "
+            f"[--hparams ...] (or --sweep-dir RUN for every checkpoint_*).")
     tree = torch.load(state_file, map_location=device, weights_only=True)
     opt = tree["opt_state"]
     state = TrainState(int(tree["step"]), tree["params"], tree["bn_state"],

@@ -187,13 +187,14 @@ def test_cli_needs_cuda_unless_told_cpu(assets, monkeypatch):
 
 @pytest.mark.parametrize("name", ["g.onnx", "g.tflite", "orbax_dir"])
 def test_unported_vocoder_formats_raise(tmp_path, name, monkeypatch):
-    """Orbax generator directories are not read (ROADMAP Queue 1 item 8);
+    """Orbax generator directories are not read (the message names
+    tools/orbax_to_torch.py, which converts them);
     an .onnx path is opened (a missing file raises), and a .tflite one
     needs tensorflow."""
     path = tmp_path / name
     if name == "orbax_dir":
         path.mkdir()
-        err, match = NotImplementedError, "ROADMAP"
+        err, match = NotImplementedError, "tools/orbax_to_torch.py"
     elif name == "g.onnx":
         err, match = FileNotFoundError, "g.onnx"
     else:

@@ -34,7 +34,9 @@ def test_port_has_the_slice_modules():
                  "models.waveglow", "apps.train_waveglow", "utils.onnx_lite",
                  "models.vocoder_runtimes", "tools.export_hifigan_onnx",
                  "apps.preprocess", "apps.demo", "apps.check_bert_emb",
-                 "apps.dump_phone_id_map", "parallel", "parallel.mesh"):
+                 "apps.dump_phone_id_map", "parallel", "parallel.mesh",
+                 "tools.make_synthetic_dataset", "tools.train_tokenizer",
+                 "tools.eval_synthetic", "tools.gan_batch_scaling"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
     # the G2P engine is built from the port's own copy of the C++ source,
     # check_bert_emb's default tokenizer is the port's own copy of the asset
@@ -48,7 +50,8 @@ def test_port_has_the_slice_modules():
     ("text.g2p", "yaml"), ("utils.logging_utils", "matplotlib"),
     ("utils.logging_utils", "tensorboardX"), ("text.bert", "tokenizers"),
     ("text.bert", "transformers"), ("models.vocoder_runtimes", "tensorflow"),
-    ("apps.check_bert_emb", "tokenizers"), ("apps.demo", "streamlit")])
+    ("apps.check_bert_emb", "tokenizers"), ("apps.demo", "streamlit"),
+    ("tools.train_tokenizer", "tokenizers")])
 def test_optional_packages_load_only_when_used(module, lazy):
     """The card's machine may lack PyYAML, matplotlib, tensorboardX,
     tokenizers, transformers, tensorflow and streamlit: importing the

@@ -5,7 +5,8 @@ Tolerances, as max|port - jax| / max|jax|: the host constants bit-equal;
 STFT magnitude and the mel spectrograms 1e-5 (one f32 matmul each, summed
 in another order); the inverse STFT and the denoiser 1e-4 (two matmuls and
 an overlap-add); Griffin-Lim with the JAX initial phases injected, 4
-iterations, 1e-4."""
+iterations, 1e-4.  An f64 signal's mels stay f64: 1e-10 absolute of the
+same bases applied in float64 numpy."""
 
 import jax
 import jax.numpy as jnp
@@ -167,3 +168,23 @@ def test_inv_mel_spec_matches_jax_through_the_same_phases():
     got = TS.inv_mel_spec(torch.from_numpy(np.array(mel)), griffin_iters=0,
                           angles=torch.from_numpy(np.array(angles)))
     assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_f64_mels_stay_f64(shape):
+    """An f64 waveform stays f64 through the STFT and the filterbank (the
+    f64 witness of chip_smoke.py's GAN gradient trace): within 1e-10 of
+    the same f32 bases applied in float64 numpy, where the f32 path lies
+    further off."""
+    y = _signal(shape).astype(np.float64)
+    got = TS.mel_spectrogram(torch.from_numpy(y))
+    assert got.dtype == torch.float64
+    fwd, _ = TS.stft_bases(*GEOMETRY)
+    frames = TS.frame_signal(torch.from_numpy(y), 1024, 256).numpy()
+    spec = frames @ fwd.astype(np.float64).T           # [B, F, 2 x 513]
+    mag = np.hypot(spec[..., :513], spec[..., 513:]).transpose(0, 2, 1)
+    fb = TS.mel_filterbank(22050, 1024, 80, 0.0, 8000.0).astype(np.float64)
+    want = np.log(np.maximum(fb @ mag, 1e-5))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
+    f32 = TS.mel_spectrogram(torch.from_numpy(y.astype(np.float32)))
+    assert np.abs(f32.double().numpy() - want).max() > 1e-8
