@@ -62,9 +62,20 @@ the port at full width:
    training CLI on that corpus (K2 per step, K3 per validation batch),
    eval_synthetic's int8 sweep of its checkpoints (K1 counted, the resumed
    sweep skipping every row, one f32 row card vs CPU) and
-   gan_batch_scaling at B = 4, 16, 32.
+   gan_batch_scaling at B = 4, 16, 32;
+ - the measurement layer (``phase_measurement``): the port's bench at
+   its pinned workload (busy <= span <= wall, up to the clocks'
+   disagreement, in every traced window; equal records per call; K2
+   counted in its soft-DTW train run, its JSON keys against bench.py's),
+   train_step_profile (K2 per step in its table; the decode's launches
+   per step against the profile above), serving_latency on a timer-gated
+   checkpoint (int8, K1 counted), kernel_evidence (exit code 0),
+   gta_vocoder_smoke and infer_wav_demo on the synthetic corpus, and K1,
+   K2, K3 named in a trace of a CUDA-graph replay.
 
-``python3 chip_smoke.py --k1-splits`` builds the kernels and times K1 at
+``python3 chip_smoke.py --bench`` runs the port's whole bench (``python -m
+tacotron2_subword_tpu_torch.bench``, its three CPU probes included) and
+prints its line; ``--k1-splits`` builds the kernels and times K1 at
 every number of K splits instead (the table behind ``ops/quant.k1_plan``);
 ``--cli-nondeterminism`` runs the training CLI of ``phase_multi_rank``
 twice with PyTorch's default algorithms and prints how far its losses
@@ -87,6 +98,8 @@ import time
 
 import numpy as np
 import torch
+
+from tacotron2_subword_tpu_torch.bench import train_batch
 
 BF16_PEAK = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 F32_PEAK = 67e12     # f32 FLOP/s outside the tensor cores
@@ -556,14 +569,15 @@ def phase_serve(Q, TM, TI, params, bn, gen_params, cfg, h, dev, gpu):
 PROFILE_STEPS = 32
 
 
-def profile_decode(TM, TI, params, bn, cfg, dev, lengths):
-    """The decoder loop alone (PROFILE_STEPS steps, the encoders run
-    before) under torch.profiler with CUDA activity: (its row of wall and
-    device us per step, device-busy share, kernel launches per step, K1's
-    us and launches per step and the kernels with the most device time;
-    the CUDA kernels' key averages)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_decode(TM, TI, params, bn, cfg, dev, lengths,
+                   steps=PROFILE_STEPS):
+    """The decoder loop alone (``steps`` steps, the encoders run
+    before) under ``utils.xprof.device_profile`` (CUDA activity only): (its
+    row of wall and device-busy us per step (the union of the device
+    intervals), device-busy share, kernel launches per step, K1's us and
+    launches per step and the kernels with the most device time; the
+    device activities' (name, ms, count) rows)."""
+    from tacotron2_subword_tpu_torch.utils import xprof
     text, sub, cls_p, cls_s, t_len, s_len = TI.pad_requests(
         make_requests(cfg, lengths, seed=7), dev)
     dtype = TM._compute_dtype(cfg)
@@ -580,50 +594,52 @@ def profile_decode(TM, TI, params, bn, cfg, dev, lengths):
     def run():
         with torch.inference_mode():
             TM.decoder_infer(
-                params["decoder"], cfg, mem, mem_b, max_steps=PROFILE_STEPS,
+                params["decoder"], cfg, mem, mem_b, max_steps=steps,
                 gate_threshold=1.1, text_lengths=t_len,
                 sub_lengths=s_len,
                 generator=torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
     run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with xprof.device_profile() as prof:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    k1 = [e for e in kern if "dequant_int8_matmul" in e.key]
-    dev_us = sum(e.self_device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:6]
+    s = xprof.profile_summary(prof)
+    k1 = [o for o in s.ops if "dequant_int8_matmul" in o[0]]
     row = {
-        "B": len(lengths), "steps": PROFILE_STEPS,
-        "wall_us_per_step": wall / PROFILE_STEPS * 1e6,
-        "device_us_per_step": dev_us / PROFILE_STEPS,
-        "device_busy_share": dev_us / (wall * 1e6),
-        "kernel_launches_per_step": sum(e.count for e in kern) / PROFILE_STEPS,
-        "k1_us_per_step": sum(e.self_device_time_total for e in k1)
-        / PROFILE_STEPS,
-        "k1_launches_per_step": sum(e.count for e in k1) / PROFILE_STEPS,
+        "B": len(lengths), "steps": steps,
+        "wall_us_per_step": wall / steps * 1e6,
+        "device_us_per_step": s.busy_ms * 1e3 / steps,
+        "device_busy_share": s.busy_ms / (wall * 1e3),
+        "kernel_launches_per_step": s.n_events / steps,
+        "k1_us_per_step": sum(ms for _, ms, _ in k1) * 1e3 / steps,
+        "k1_launches_per_step": sum(n for _, _, n in k1) / steps,
         "top_kernels_us_per_step": [
-            [e.key[:70], e.self_device_time_total / PROFILE_STEPS] for e in top],
+            [name[:70], ms * 1e3 / steps] for name, ms, _ in s.ops[:6]],
     }
-    return row, kern
+    return row, s.ops
 
 
 def phase_profile(TM, TI, params, bn, cfg, dev):
     """Where a decode step's time goes (``profile_decode``): the decoder
     loop alone at B=4 and B=128, its wall time per step, the device-busy
     share of that wall time, K1's device time and launches per step, and
-    the kernels with the most device time.  Fails if a split-K reduce
+    the kernels with the most device time; at B=128 also the launches per
+    step as the slope of a PROFILE_STEPS- and a 2 x PROFILE_STEPS-step
+    loop (the per-call launches cancel).  Fails if a split-K reduce
     kernel ran (K1 is one launch per call)."""
     rows = []
     for lengths in (REQUESTS, [(64, 32)] * 128):
-        row, kern = profile_decode(TM, TI, params, bn, cfg, dev, lengths)
-        if any("splitk_reduce" in e.key for e in kern):
+        row, ops = profile_decode(TM, TI, params, bn, cfg, dev, lengths)
+        if any("splitk_reduce" in name for name, _, _ in ops):
             raise AssertionError("profile: a split-K reduce kernel ran; K1 "
                                  "must be one launch per call")
+        if len(lengths) == 128:
+            long, _ = profile_decode(TM, TI, params, bn, cfg, dev, lengths,
+                                     2 * PROFILE_STEPS)
+            row["kernel_launches_per_step_slope"] = (
+                2 * long["kernel_launches_per_step"]
+                - row["kernel_launches_per_step"])
         rows.append(row)
         print("profile", json.dumps(row))
     return rows
@@ -666,40 +682,17 @@ TRAIN_B, TRAIN_T_OUT, TRAIN_T_TEXT, TRAIN_T_SUB = 8, 128, 64, 32
 TRAIN_STEPS = 3
 
 
-def train_batch(cfg, dev, B=TRAIN_B, t_out=TRAIN_T_OUT, T_text=TRAIN_T_TEXT,
-                T_sub=TRAIN_T_SUB, seed=0):
-    """bench.py's train batch (run_train): the same draws from
-    RandomState(seed) in the same order; ids as int64 on ``dev``."""
-    from tacotron2_subword_tpu_torch.train_lib import make_gate_target
-    rng = np.random.RandomState(seed)
-    lengths = lambda T: np.clip(rng.randint(T // 2, T + 1, B), 2, T)
-    b = {"text": rng.randint(0, cfg.n_symbols, (B, T_text)),
-         "text_lengths": lengths(T_text),
-         "sub": rng.randint(0, cfg.sub_n_symbols, (B, T_sub)),
-         "sub_lengths": lengths(T_sub),
-         "mels": rng.randn(B, cfg.n_mel_channels, t_out).astype(np.float32),
-         "output_lengths": lengths(t_out),
-         "cls_phone": rng.randn(B, cfg.bert_embedding_dim).astype(np.float32),
-         "cls_sub": rng.randn(B, cfg.bert_embedding_dim).astype(np.float32)}
-    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-    for k in ("text", "sub", "text_lengths", "sub_lengths", "output_lengths"):
-        b[k] = b[k].long()
-    b["gate_target"] = make_gate_target(b["output_lengths"], t_out)
-    return b
-
-
 def phase_train(TT, SD, cfg, dev, gpu):
     """The training path at full width with the soft-DTW loss on: one
     warm-up train step, then TRAIN_STEPS timed steps and one eval step with
     K2's and K3's launches counted from 0; then one more step under
     torch.profiler.  Every loss and grad_norm must be finite, K2 launch
     once per train step and K3 once per eval step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from tacotron2_subword_tpu_torch.utils import xprof
     state, tx = TT.create_train_state(torch.Generator().manual_seed(0), cfg,
                                       device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    batch = train_batch(cfg, dev)
+    batch = train_batch(cfg, dev, TRAIN_B, TRAIN_T_OUT)
     torch.cuda.reset_peak_memory_stats()
     state, m = TT.train_step(state, batch, cfg, tx, generator=gen)  # warm-up
     torch.cuda.synchronize()
@@ -736,23 +729,18 @@ def phase_train(TT, SD, cfg, dev, gpu):
            "eval_losses": evals, "gpu": gpu}
     print("train", json.dumps(row))
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with xprof.device_profile() as prof:
         t0 = time.perf_counter()
         state, m = TT.train_step(state, batch, cfg, tx, generator=gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
+    s = xprof.profile_summary(prof)
     print("train profile", json.dumps({
-        "wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
-        "device_busy_share": dev_us / (wall * 1e6),
-        "kernel_launches": sum(e.count for e in kern),
-        "top_kernels_ms": [[e.key[:70], e.count,
-                            e.self_device_time_total / 1e3] for e in top]}))
+        "wall_ms": wall * 1e3, "device_ms": s.busy_ms,
+        "device_busy_share": s.busy_ms / (wall * 1e3),
+        "kernel_launches": s.n_events,
+        "top_kernels_ms": [[name[:70], n, ms] for name, ms, n in
+                           s.ops[:10]]}))
     return k2, k3
 
 
@@ -945,10 +933,9 @@ def phase_ssim(dev, gpu):
     a 256-frame bucket, [8, 1, 80, 256] f32: value and gradient w.r.t. the
     first image, atol 1e-5 / rtol 1e-4 (the same five f32 convolutions in
     cuDNN's order, TF32 off).  Its device time: the forward as a CUDA
-    graph, forward + backward of ssim_mel_loss from the profiler's kernel
-    sums."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    graph, forward + backward of ssim_mel_loss from the profiler's busy
+    time (``utils.xprof``)."""
+    from tacotron2_subword_tpu_torch.utils import xprof
     from tacotron2_subword_tpu_torch.ops.ssim import ssim
     from tacotron2_subword_tpu_torch.train_lib import ssim_mel_loss
     rng = np.random.RandomState(5)
@@ -975,21 +962,18 @@ def phase_ssim(dev, gpu):
     for _ in range(3):
         torch.autograd.grad(ssim_mel_loss(xg, y), xg)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with xprof.device_profile() as prof:
         for _ in range(10):
             torch.autograd.grad(ssim_mel_loss(xg, y), xg)
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    prof_s = xprof.profile_summary(prof)
     row = {"shape": [8, 1, 80, 256], "value": out["cpu"][0].item(),
            "bit_equal": all(torch.equal(a, b) for a, b in zip(out["cuda"],
                                                               out["cpu"])),
            "max_abs_err_value": err_v, "max_abs_err_grad": err_g,
            "fwd_device_ms": fwd_ms,
-           "fwd_bwd_device_ms": sum(e.self_device_time_total
-                                    for e in kern) / 1e3 / 10,
-           "fwd_bwd_kernel_launches": sum(e.count for e in kern) / 10,
+           "fwd_bwd_device_ms": prof_s.busy_ms / 10,
+           "fwd_bwd_kernel_launches": prof_s.n_events / 10,
            "gpu": gpu}
     print("ssim", json.dumps(row))
     return row
@@ -1008,8 +992,8 @@ def phase_train_real(SD, dev, gpu):
         saved state bit for bit, K2 == 2, K3 == 0;
      C. a warm start from checkpoint_4: every param but the embedding is
         the checkpoint's, the embedding a fresh init's, step 0;
-     D. 4 iterations with --prefetch 0 and with --prefetch 2: the same
-        first loss, and each one's s/it.
+     D. 3 iterations with --prefetch 0 and with --prefetch 2: the same
+        first loss, and each one's s/it (iterations 2 and 3).
     Returns (K2, K3) launches of run A."""
     import importlib.util
     import shutil
@@ -1119,7 +1103,7 @@ def phase_train_real(SD, dev, gpu):
     first = {}
     for depth in (0, 2):
         d = root / f"prefetch{depth}"
-        res, _ = _run_cli(TAPP, real_argv(data, d, "--max-iters", "4",
+        res, _ = _run_cli(TAPP, real_argv(data, d, "--max-iters", "3",
                                           "--prefetch", str(depth)))
         sit[depth] = float(np.mean(res["iter_s"][1:]))
         first[depth] = res["losses"][0]
@@ -2096,7 +2080,7 @@ def phase_attention_variants(Q, SD, dev, gpu):
         state, tx = TT.create_train_state(torch.Generator().manual_seed(0),
                                           cfg_train, device=dev)
         gen = torch.Generator(device=dev).manual_seed(1)
-        batch = train_batch(cfg_train, dev)
+        batch = train_batch(cfg_train, dev, TRAIN_B, TRAIN_T_OUT)
         state, _ = TT.train_step(state, batch, cfg_train, tx,
                                  generator=gen)    # warm-up
         torch.cuda.synchronize()
@@ -2336,29 +2320,24 @@ def _sync_sites(fn):
 
 
 def profile_call(fn, n_top=6):
-    """One call of ``fn`` under torch.profiler: wall ms, device ms (the
-    CUDA kernels' self time), device-busy share, kernel launches and the
-    kernels with the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One call of ``fn`` under ``utils.xprof.device_profile``:
+    wall ms, device ms (busy: the union of the device intervals),
+    device-busy share, kernel launches and the kernels with the most
+    device time."""
+    from tacotron2_subword_tpu_torch.utils import xprof
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with xprof.device_profile() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:n_top]
-    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
-            "device_busy_share": dev_us / (wall * 1e6),
-            "kernel_launches": sum(e.count for e in kern),
-            "top_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3,
-                                e.count] for e in top]}
+    s = xprof.profile_summary(prof)
+    return {"wall_ms": wall * 1e3, "device_ms": s.busy_ms,
+            "device_busy_share": s.busy_ms / (wall * 1e3),
+            "kernel_launches": s.n_events,
+            "top_kernels_ms": [[name[:70], ms, n]
+                               for name, ms, n in s.ops[:n_top]]}
 
 
 def phase_vocoders_and_tools(Q, dev, gpu):
@@ -2742,6 +2721,7 @@ def phase_vocoders_and_tools(Q, dev, gpu):
 
 MR_HPARAMS = "[softdtw_loss_weight:1.0-parity_mode:true]"
 MR_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+MR_TIMEOUT_S = 420   # the CLI runs and the groups, all at once
 MR_LOSS_RE = r"iter (\d+): loss ([\d.eE+-]+) grad_norm \S+ ([\d.]+)s/it"
 
 
@@ -2809,7 +2789,7 @@ def multi_rank_worker(rank, world, store, out_dir, dev_name, cfg_fields):
         cfg0 = cfg.replace(softdtw_loss_weight=0.0)
         state, tx = TT.create_train_state(torch.Generator().manual_seed(0),
                                           cfg, device="cpu")
-        batch = train_batch(cfg, dev)
+        batch = train_batch(cfg, dev, TRAIN_B, TRAIN_T_OUT)
         batch["weight"] = torch.ones(TRAIN_B, device=dev)
         batch["weight"][-1] = 0.0
         gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
@@ -2914,22 +2894,27 @@ def multi_rank_worker(rank, world, store, out_dir, dev_name, cfg_fields):
         dist.destroy_process_group()
 
 
-def _spawn_ranks(world, out_dir, dev_name, cfg_fields, timeout_s=300):
-    """Runs multi_rank_worker on ``world`` ranks (spawned, a file store in
-    out_dir); a rank that raises or exits non-zero, or a run past
-    ``timeout_s``, raises here (the ranks are killed)."""
+def _spawn_ranks(world, out_dir, dev_name, cfg_fields):
+    """Starts multi_rank_worker on ``world`` ranks (spawned, a file store
+    in out_dir); ``_join_ranks`` waits for them."""
     import os
     import torch.multiprocessing as mp
     store = os.path.join(out_dir, f"store{world}")
-    ctx = mp.start_processes(multi_rank_worker,
-                             args=(world, store, out_dir, dev_name,
-                                   cfg_fields),
-                             nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout_s
+    return mp.start_processes(multi_rank_worker,
+                              args=(world, store, out_dir, dev_name,
+                                    cfg_fields), nprocs=world, join=False,
+                              start_method="spawn")
+
+
+def _join_ranks(ctx, world, out_dir, deadline):
+    """The rows of ``_spawn_ranks``' ranks; a rank that raises or exits
+    non-zero, or a run past ``deadline`` (time.monotonic), raises here
+    (the ranks are killed)."""
+    import os
     try:
         while not ctx.join(timeout=1):
             if time.monotonic() > deadline:
-                raise TimeoutError(f"{world} ranks ran past {timeout_s} s")
+                raise TimeoutError(f"{world} ranks ran past the deadline")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -2952,26 +2937,42 @@ DETERMINISTIC_TRAIN = (
     "train.main(sys.argv[1:])")
 
 
-def _train_cli_run(argv, env, multihost, deterministic=True):
-    """The training CLI (``apps.train.main``) as a subprocess, under
+def _train_cli_start(argv, env, multihost, log, deterministic=True):
+    """Starts the training CLI (``apps.train.main``) as a subprocess, under
     torch.distributed.run with one rank and --multihost when
-    ``multihost``: (losses, s/it per iteration, process wall s)."""
-    import re
+    ``multihost``, its standard output to the file ``log`` and its errors
+    to ``log``.err; ``_train_cli_end`` waits for it."""
     entry = (["-c", DETERMINISTIC_TRAIN] if deterministic
              else ["-m", "tacotron2_subword_tpu_torch.apps.train"])
     cmd = [sys.executable, *entry, *argv]
     if multihost:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc_per_node=1", "--no-python", *cmd, "--multihost"]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                       timeout=400)
+    with open(log, "w") as out, open(f"{log}.err", "w") as err:
+        proc = subprocess.Popen(cmd, env=env, stdout=out, stderr=err,
+                                text=True)
+    return proc, time.perf_counter(), log
+
+
+def _train_cli_end(run, deadline):
+    """(losses, s/it per iteration, process wall s) of a
+    ``_train_cli_start`` run; a non-zero exit, or a run past ``deadline``
+    (time.monotonic), raises (the process is killed)."""
+    import re
+    proc, t0, log = run
+    try:
+        code = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     wall = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise AssertionError(f"train CLI (multihost={multihost}) exited "
-                             f"{r.returncode}: {r.stdout[-2000:]} "
-                             f"{r.stderr[-3000:]}")
-    found = re.findall(MR_LOSS_RE, r.stdout)
+    with open(log) as f, open(f"{log}.err") as e:
+        text, err = f.read(), e.read()
+    if code != 0:
+        raise AssertionError(f"train CLI {log} exited {code}: "
+                             f"{text[-2000:]} {err[-3000:]}")
+    found = re.findall(MR_LOSS_RE, text)
     return ([float(l) for _, l, _ in found], [float(s) for _, _, s in found],
             wall)
 
@@ -2999,8 +3000,11 @@ def cli_nondeterminism(gpu):
     root = Path(__file__).resolve().parent / "_runs" / "cli_nondeterminism"
     shutil.rmtree(root, ignore_errors=True)
     env, argv = _mr_cli(root)
-    runs = [_train_cli_run(argv(f"run{i}"), env, False, deterministic=False)
-            for i in range(2)]
+    root.mkdir(parents=True)
+    deadline = time.monotonic() + MR_TIMEOUT_S
+    runs = [_train_cli_end(_train_cli_start(
+        argv(f"run{i}"), env, False, str(root / f"run{i}.log"),
+        deterministic=False), deadline) for i in range(2)]
     rel = [abs(a - b) / abs(b) for a, b in zip(runs[0][0], runs[1][0])]
     print("train CLI, default algorithms, run to run:", json.dumps({
         "losses": [r[0] for r in runs], "rel_diff_per_iteration": rel,
@@ -3020,7 +3024,9 @@ def phase_multi_rank(dev, gpu, cfg_fields=None, hparams=MR_HPARAMS,
     (1, 2) on 2 ranks, (2, 2) on 4, each one train step (loss_and_grads
     and train_step) and one eval step of the global batch B=8, T_out=128,
     held to the single-process step (``multi_rank_worker``); K2 and K3
-    counted on every rank.
+    counted on every rank.  The two CLI runs and the two groups run at
+    once, within MR_TIMEOUT_S: their s/it and walls are read under each
+    other's load.
     Returns {k2, k3: the launches summed over every rank and mesh,
     k2_per_rank, k3_per_rank: by mesh}."""
     import os
@@ -3031,8 +3037,33 @@ def phase_multi_rank(dev, gpu, cfg_fields=None, hparams=MR_HPARAMS,
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     env, argv = _mr_cli(root, hparams, device_args)
-    plain, plain_s, plain_wall = _train_cli_run(argv("plain"), env, False)
-    multi, multi_s, multi_wall = _train_cli_run(argv("nccl"), env, True)
+    # the phone vocabulary padded to 314 rows so that the model axis can
+    # split it (313 is odd; JAX's mesh tests pad theirs the same way)
+    fields = cfg_fields or dataclasses.asdict(TacotronConfig(
+        softdtw_loss_weight=1.0, parity_mode=True, n_symbols=314))
+    deadline = time.monotonic() + MR_TIMEOUT_S
+    clis, groups = [], []
+    try:
+        for name, multihost in (("plain", False), ("nccl", True)):
+            clis.append(_train_cli_start(argv(name), env, multihost,
+                                         str(root / f"{name}.log")))
+        for world in (2, 4):
+            out = root / f"world{world}"
+            out.mkdir()
+            groups.append((_spawn_ranks(world, str(out), str(dev), fields),
+                           world, str(out)))
+        (plain, plain_s, plain_wall), (multi, multi_s, multi_wall) = (
+            _train_cli_end(run, deadline) for run in clis)
+        rows = [row for ctx, world, out in groups
+                for row in _join_ranks(ctx, world, out, deadline)]
+    finally:
+        for proc, _, _ in clis:
+            if proc.poll() is None:
+                proc.kill()
+        for ctx, _, _ in groups:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
     if len(plain) != 3 or len(multi) != 3:
         raise AssertionError(f"train CLI: {plain} / {multi} losses")
     rel = max(abs(a - b) / abs(b) for a, b in zip(multi, plain))
@@ -3044,19 +3075,10 @@ def phase_multi_rank(dev, gpu, cfg_fields=None, hparams=MR_HPARAMS,
            "s_per_it_plain": plain_s, "s_per_it_nccl_1_rank": multi_s,
            "s_per_step_plain_iters_2_3": sum(plain_s[1:]) / 2,
            "s_per_step_nccl_iters_2_3": sum(multi_s[1:]) / 2,
-           "process_wall_s": [plain_wall, multi_wall], "gpu": gpu}
+           "process_wall_s": [plain_wall, multi_wall],
+           "concurrent": True, "gpu": gpu}
     print("multi-rank (a) train CLI, one NCCL rank vs plain:",
           json.dumps(cli))
-
-    # the phone vocabulary padded to 314 rows so that the model axis can
-    # split it (313 is odd; JAX's mesh tests pad theirs the same way)
-    fields = cfg_fields or dataclasses.asdict(TacotronConfig(
-        softdtw_loss_weight=1.0, parity_mode=True, n_symbols=314))
-    rows = []
-    for world in (2, 4):
-        out = root / f"world{world}"
-        out.mkdir()
-        rows += _spawn_ranks(world, str(out), str(dev), fields)
     for row in rows:
         print("multi-rank (b)", json.dumps({**row, "gpu": gpu}))
     single = next(r["single_process"] for r in rows if "single_process" in r)
@@ -3144,7 +3166,8 @@ def phase_synthetic_tools(Q, SD, dev, gpu, gan_step_s):
          of phase_after_training).
     train_tokenizer and tools/orbax_to_torch.py need tokenizers and JAX:
     host-only, tested on the CPU.  Returns {k1, k2, k3: launches,
-    report}."""
+    report, root: the ``_runs/synthetic`` directory, kept for
+    phase_measurement; the caller removes it}."""
     import contextlib
     import csv
     import io
@@ -3327,8 +3350,335 @@ def phase_synthetic_tools(Q, SD, dev, gpu, gan_step_s):
     report["phase_s"] = time.perf_counter() - t_phase
     print("synthetic phase", json.dumps({"phase_s": report["phase_s"],
                                           "gpu": gpu}))
+    return {"k1": k1, "k2": k2, "k3": k3, "report": report, "root": root}
+
+
+MEAS_TSP_STEPS = 3         # train_step_profile --softdtw --steps
+MEAS_SERVE_REPEATS = 1     # serving_latency --repeats (11 acoustic calls)
+MEAS_EVIDENCE_REPEATS = 1  # kernel_evidence --repeats
+MEAS_WALL_WINDOWS = 1      # the bench's untraced infer windows (--bench: 3)
+MEAS_GTA_ITERS = 20        # gta_vocoder_smoke --iters
+MEAS_GTA_N = 8             # gta_vocoder_smoke --n (2 held out)
+# train_step_profile --infer (B=128, 200 steps, int8) launches per step,
+# the slope of its 200- and 16-step decodes, against the slope of
+# phase_profile's B=128 decode loop at 32 and 64 steps: the decodes sync
+# on the host every 16 steps, 11 times in 184 steps against 2 in 32, and
+# differ by no more (0.01 % of ~81 launches)
+MEAS_LAUNCH_RTOL = 0.005
+# busy and span share the profiler's clock (the card's timestamps as it
+# converts them), the wall is the host's: in the host-bound decode the
+# true span lies within about a millisecond of the wall, and span / wall
+# read 0.9951-0.9998 in nine bench windows of 2.2-3.4 s on the H100, and
+# 1.0008 and 1.0023 in two since every trace starts with
+# xprof.LEAD_KERNELS, so span may pass the wall by 1 %
+MEAS_CLOCK_RTOL = 0.01
+
+
+def bench_py_keys(path):
+    """(top-level keys, extra keys) of the JSON line the root bench.py
+    prints, read from its source (it is not imported)."""
+    import ast
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+                == "dumps" and node.args
+                and isinstance(node.args[0], ast.Dict)):
+            d = node.args[0]
+            keys = {k.value for k in d.keys}
+            if "extra" in keys:
+                extra = d.values[[k.value for k in d.keys].index("extra")]
+                return keys, {k.value for k in extra.keys}
+    raise AssertionError(f"{path}: no bench line found")
+
+
+MEAS_TRACE_REPS = 20   # launches of K1, K2, K3 in graph_kernel_names
+
+
+def graph_kernel_names(Q, SD, dev):
+    """K1, K2 and K3 launched MEAS_TRACE_REPS times each under
+    ``utils.xprof.device_profile``, eagerly and as CUDA-graph replays (the
+    graph captured before the profiler started, and while it runs):
+    {"eager" / "graph_before" / "graph_during": {kernel name: count}} as
+    the trace records them (``utils.xprof.parse_profile_ops``)."""
+    from tacotron2_subword_tpu_torch.utils import xprof
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 4, 1792, generator=g).to(dev, torch.bfloat16)
+    w_q, scale = Q.quantize_int8(torch.randn(2, 1792, 4096, generator=g)
+                                 .to(dev), axis=1)
+    D = torch.rand(TRAIN_B, TRAIN_T_OUT, TRAIN_T_OUT, generator=g).to(dev)
+    run = lambda: (Q.matmul_dequant_int8(x, w_q, scale),
+                   SD.softdtw_grad(D, 1.0, 0.0), SD.softdtw_value(D, 1.0, 0.0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+
+    def capture():
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+        return graph
+    before = capture()
+    before.replay()
+    torch.cuda.synchronize()
+    out = {}
+    for when in ("eager", "graph_before", "graph_during"):
+        with xprof.device_profile() as prof:
+            step = {"eager": run, "graph_before": before.replay}.get(when)
+            step = step or capture().replay
+            for _ in range(MEAS_TRACE_REPS):
+                step()
+            torch.cuda.synchronize()
+        out[when] = {name: n for name, _, n in
+                     xprof.parse_profile_ops(prof)[0]}
+    return out
+
+
+def phase_measurement(Q, SD, dev, gpu, profile_rows, synthetic):
+    """The measurement layer of the port at full width
+    (``tacotron2_subword_tpu_torch/bench.py``, ``utils/xprof.py`` and the
+    five tools), each through its entry point:
+     (a) the bench's pinned workload: ``run_infer`` at B=128 x 200 steps x
+         6 calls with profile=True, ``run_train(8)``, ``run_train(8,
+         softdtw_loss_weight=1.0)`` (K2 == 1 warm-up + 6 steps),
+         ``run_mel_extraction`` and ``run_vocoders``; in every traced
+         window busy <= span <= wall (the span on the profiler's clock,
+         up to MEAS_CLOCK_RTOL); the bench line's key set is the root
+         bench.py's plus infer_device_busy_share and gpu;
+     (b) train_step_profile --softdtw --steps 3 (K2 in its table, its
+         wrapper launched once per step) and --infer at B=128, 200 int8
+         steps (K1 in its table, 2 launches per step; launches per decoder
+         step, the slope of its 200- and 16-step decodes, within
+         MEAS_LAUNCH_RTOL of the slope in phase_profile's B=128 row,
+         ``profile_rows[1]``);
+     (c) serving_latency with int8 hparams and a HiFi-GAN g_ file on the
+         synthetic run's checkpoint_6 given ``timer_gate`` (its gate
+         layer's other weights zeroed, so the gate reads the counter
+         alone): the line stops near frame AT_STOP; K1 == 2 x the decoder
+         steps of its calls;
+     (d) kernel_evidence: exit code 0 (K1, K2, K3 within its tolerances);
+     (e) gta_vocoder_smoke --iters 20 --n 8 and infer_wav_demo
+         (gate-stopped) on the synthetic corpus (``synthetic``:
+         phase_synthetic_tools' return) and that checkpoint;
+     (f) K1, K2 and K3 under their names in the trace, launched eagerly
+         and replayed from CUDA graphs captured before and during the
+         trace (``graph_kernel_names``; the counts reported).
+    Writes ``_runs/measurement/`` and removes it.  Returns {k1, k2:
+    launches on the phase's path (kernel_evidence's comparisons apart),
+    report}."""
+    import contextlib
+    import io
+    import os
+    import runpy
+    import shutil
+    from pathlib import Path
+    from tacotron2_subword_tpu_torch import bench as PB
+    from tacotron2_subword_tpu_torch.models import hifigan as HG
+    from tacotron2_subword_tpu_torch.models import tacotron2 as TM
+    from tacotron2_subword_tpu_torch.tools import gta_vocoder_smoke as GVS
+    from tacotron2_subword_tpu_torch.tools import infer_wav_demo as IWD
+    from tacotron2_subword_tpu_torch.tools import serving_latency as SL
+    from tacotron2_subword_tpu_torch.tools import train_step_profile as TSP
+    from tacotron2_subword_tpu_torch.utils import checkpoint as CK
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    root = here / "_runs" / "measurement"
     shutil.rmtree(root, ignore_errors=True)
-    return {"k1": k1, "k2": k2, "k3": k3, "report": report}
+    root.mkdir(parents=True)
+    report = {"gpu": gpu}
+    times = {}
+
+    def windows_ordered(name, tr):
+        wall_ms = tr["wall_s"] * 1e3
+        if not (tr["busy_ms"] <= tr["span_ms"]
+                <= wall_ms * (1 + MEAS_CLOCK_RTOL)):
+            raise AssertionError(f"{name}: busy {tr['busy_ms']} <= span "
+                                 f"{tr['span_ms']} <= wall {wall_ms} ms "
+                                 f"(+{MEAS_CLOCK_RTOL:.0%}) does not hold")
+
+    # (a) the bench
+    t0 = time.perf_counter()
+    infer = PB.run_infer(dev, PB.INFER_BATCH, PB.INFER_STEPS,
+                         PB.INFER_REPEATS, profile=True,
+                         wall_windows=MEAS_WALL_WINDOWS)
+    windows_ordered("bench infer", infer["traced"])
+    times["bench_infer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    SD.grad_launches = SD.fwd_launches = 0
+    train8 = PB.run_train(8, device=dev)
+    if SD.grad_launches:
+        raise AssertionError("bench run_train(8) launched K2")
+    sdtw8 = PB.run_train(8, device=dev, softdtw_loss_weight=1.0)
+    k2_bench = SD.grad_launches
+    if k2_bench != 1 + PB.TRAIN_REPEATS:
+        raise AssertionError(f"bench soft-DTW train: K2 {k2_bench}, want "
+                             f"{1 + PB.TRAIN_REPEATS}")
+    times["bench_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    melx = PB.run_mel_extraction(device=dev)
+    windows_ordered("bench mel extraction", melx["traced"])
+    voc = PB.run_vocoders(device=dev)
+    times["bench_mel_vocoders_s"] = time.perf_counter() - t0
+    line = PB.bench_line(infer, train8, (float("nan"), float("nan")), sdtw8,
+                         melx, voc, [], {}, gpu)
+    keys, extra = bench_py_keys(here / "bench.py")
+    if set(line) != keys or set(line["extra"]) != extra | {
+            "infer_device_busy_share", "gpu"}:
+        raise AssertionError(f"bench line keys {sorted(line)} / "
+                             f"{sorted(line['extra'])} against bench.py's "
+                             f"{sorted(keys)} / {sorted(extra)}")
+    report["bench"] = {
+        "infer": infer, "train_B8": train8, "train_B8_softdtw": sdtw8,
+        "k2_softdtw_train": k2_bench, "mel_extraction": melx,
+        "vocoders_khz": voc, "line_value": line["value"]}
+    print("measurement (a) bench", json.dumps(report["bench"]))
+
+    # (b) train_step_profile
+    t0 = time.perf_counter()
+    SD.grad_launches = 0
+    with contextlib.redirect_stdout(io.StringIO()) as out_t:
+        tsp_t = TSP.main(["--softdtw", "--steps", str(MEAS_TSP_STEPS),
+                          "--device", str(dev)])
+    k2_tsp = SD.grad_launches
+    k2_rows = sum(c for n, _, c in tsp_t["ops"] if "softdtw_grad" in n)
+    k2_cat = tsp_t["categories_ms"]["K2 soft-DTW value + grad (hand-written)"]
+    # the wrapper's count is exact and holds the warm-up step; the trace's
+    # is a floor (utils.xprof)
+    if k2_tsp != 1 + MEAS_TSP_STEPS or not 0 < k2_rows <= MEAS_TSP_STEPS \
+            or not k2_cat > 0 or "K2 soft-DTW" not in out_t.getvalue():
+        raise AssertionError(f"train_step_profile --softdtw: K2 {k2_tsp} "
+                             f"launches, {k2_rows} in the table")
+    Q.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()) as out_i:
+        tsp_i = TSP.main(["--infer", "--batch", "128", "--hparams",
+                          "[decode_quant:int8]", "--device", str(dev)])
+    k1_tsp = Q.launches
+    steps_i = tsp_i["steps"]
+    k1_rows = sum(c for n, _, c in tsp_i["ops"]
+                  if "dequant_int8_matmul" in n)
+    ref = profile_rows[1]["kernel_launches_per_step_slope"]
+    per_step = tsp_i["slope"]["launches_per_step"]
+    # a warm-up and a traced decode of steps_i and of SYNC_EVERY steps
+    if k1_tsp != 2 * 2 * (steps_i + TM.SYNC_EVERY) \
+            or not 0 < k1_rows <= 2 * steps_i \
+            or abs(per_step / ref - 1) > MEAS_LAUNCH_RTOL:
+        raise AssertionError(
+            f"train_step_profile --infer: K1 {k1_tsp} launches ({k1_rows} "
+            f"in the table) for {steps_i} steps; {per_step} launches per "
+            f"step against phase_profile's slope {ref}")
+    print(out_t.getvalue())
+    print(out_i.getvalue())
+    times["train_step_profile_s"] = time.perf_counter() - t0
+    report["train_step_profile"] = {
+        "softdtw": {k: tsp_t[k] for k in ("wall_ms", "busy_ms", "span_ms",
+                                          "launches_per", "busy_share",
+                                          "categories_ms")},
+        "infer": {k: tsp_i[k] for k in ("wall_ms", "busy_ms", "span_ms",
+                                        "launches_per", "busy_share",
+                                        "categories_ms", "slope")},
+        "phase_profile_b128_launches_per_step_slope": ref,
+        "k2_launches": k2_tsp, "k2_table_rows": k2_rows,
+        "k1_launches": k1_tsp, "k1_table_rows": k1_rows}
+
+    # (c) serving_latency on a timer-gated checkpoint, int8, HiFi-GAN
+    t0 = time.perf_counter()
+    # the gate reads the counter alone: the trained run's other gate
+    # weights hold its logit below what the counter adds by frame 2000
+    state, _ = CK.load_checkpoint(str(synthetic["root"] / "run"
+                                      / "checkpoint_6"), "cpu")
+    state.params["decoder"]["gate_layer"]["w"].zero_()
+    timer_gate(state.params["decoder"], AT_STOP)
+    ck = CK.save_checkpoint(state, str(root), name="timer_gate")
+    res = write_resources(str(root))
+    os.environ["T2S_RESOURCES_DIR"] = res
+    h = HG.HifiganConfig()
+    gpath, cpath = str(root / "g_00000001"), str(root / "config_v1.json")
+    torch.save({"generator": HG.export_torch_generator(
+        unit_norm_generator(HG, h, 1))}, gpath)
+    write_hifigan_config(cpath, h)
+    Q.launches = 0
+    serve, steps = SL.main([
+        "--checkpoint", ck, "--hifigan-checkpoint", gpath,
+        "--hifigan-config", cpath, "--g2p-lexicon",
+        os.path.join(res, "small.lex"), "--hparams", "[decode_quant:int8]",
+        "--repeats", str(MEAS_SERVE_REPEATS), "--out-md",
+        str(root / "latency.md"), "--device", str(dev)])
+    k1_serve = Q.launches
+    if k1_serve != 2 * sum(steps) or not (
+            AT_MIN_FRAMES <= serve["frames"] < 2 * AT_STOP) or not (
+            0 < serve["acoustic_device_ms"] <= serve["acoustic_wall_ms"]
+            and 0 < serve["vocoder_device_ms"] <= serve["vocoder_wall_ms"]):
+        raise AssertionError(f"serving_latency: {serve}, K1 {k1_serve} in "
+                             f"{steps} steps")
+    times["serving_latency_s"] = time.perf_counter() - t0
+    report["serving_latency"] = {**serve, "k1_launches": k1_serve,
+                                 "decode_steps": steps}
+
+    # (d) kernel_evidence as a script: its exit code
+    t0 = time.perf_counter()
+    argv, sys.argv = sys.argv, ["kernel_evidence", "--repeats",
+                                str(MEAS_EVIDENCE_REPEATS), "--out",
+                                str(root / "evidence.md")]
+    k_before = (Q.launches, SD.grad_launches, SD.fwd_launches)
+    try:
+        runpy.run_module("tacotron2_subword_tpu_torch.tools.kernel_evidence",
+                         run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    else:
+        raise AssertionError("kernel_evidence ended without an exit code")
+    finally:
+        sys.argv = argv
+    if code != 0:
+        raise AssertionError(f"kernel_evidence exited {code}")
+    times["kernel_evidence_s"] = time.perf_counter() - t0
+    report["kernel_evidence"] = {
+        "exit_code": code, "comparison_launches": [
+            a - b for a, b in zip((Q.launches, SD.grad_launches,
+                                   SD.fwd_launches), k_before)]}
+
+    # (e) gta_vocoder_smoke and infer_wav_demo on the synthetic corpus
+    t0 = time.perf_counter()
+    data = str(synthetic["root"] / "data")
+    gta = GVS.main(["--data", data, "--checkpoint", ck, "--work",
+                    str(root / "gta"), "--iters", str(MEAS_GTA_ITERS),
+                    "--n", str(MEAS_GTA_N), "--device", str(dev)])
+    if gta["ft_iters"] != MEAS_GTA_ITERS or not all(np.isfinite(gta[k]) for k in (
+            "mel_l1_init", "mel_l1_ft", "mel_l1_init_vs_wav",
+            "mel_l1_ft_vs_wav")) or gta["samples"] <= 0:
+        raise AssertionError(f"gta_vocoder_smoke: {gta}")
+    times["gta_vocoder_smoke_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    demo = IWD.main(["--data", data, "--checkpoint", ck, "--out",
+                     str(root / "demo.wav"), "--gate-threshold", "0.5",
+                     "--device", str(dev)])
+    if not (demo["gate_stopped"] and demo["frames"] >= AT_MIN_FRAMES):
+        raise AssertionError(f"infer_wav_demo: {demo}")
+    times["infer_wav_demo_s"] = time.perf_counter() - t0
+    report["gta_vocoder_smoke"] = gta
+    report["infer_wav_demo"] = demo
+
+    # K1, K2 and K3 under their names in the trace, eager and replayed
+    # from CUDA graphs (a trace's counts are floors: records can be lost
+    # at its start, utils.xprof; the counts are reported)
+    names = graph_kernel_names(Q, SD, dev)
+    for want in ("dequant_int8_matmul", "softdtw_grad", "softdtw_fwd"):
+        for when, got in names.items():
+            if not 0 < sum(n for k, n in got.items() if want in k) \
+                    <= MEAS_TRACE_REPS:
+                raise AssertionError(f"trace ({when}): {want} not "
+                                     f"1-{MEAS_TRACE_REPS} times: {names}")
+    report["graph_kernel_names"] = names
+    report["times_s"] = times
+    report["phase_s"] = time.perf_counter() - t_phase
+    print("measurement", json.dumps({k: report[k] for k in (
+        "train_step_profile", "serving_latency", "kernel_evidence",
+        "gta_vocoder_smoke", "infer_wav_demo", "graph_kernel_names",
+        "times_s", "phase_s", "gpu")}))
+    shutil.rmtree(root, ignore_errors=True)
+    return {"k1": k1_tsp + k1_serve, "k2": k2_bench + k2_tsp,
+            "report": report}
 
 
 # G's terms (adversarial, feature, 45 x mel L1) in --gan-grad-trace: all,
@@ -3409,6 +3759,30 @@ def gan_grad_trace(dev, gpu, B=2, depths=(8, 64)):
     return out
 
 
+def run_bench(gpu):
+    """The port's whole bench (``python -m tacotron2_subword_tpu_torch.bench``,
+    PyTorch's default TF32 settings, its three CPU probes) in a subprocess:
+    its JSON line, checked for the bench's keys and finite numbers, and
+    its wall time."""
+    from pathlib import Path
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tacotron2_subword_tpu_torch.bench"],
+        check=True, capture_output=True, text=True,
+        cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    sys.stderr.write(out.stderr[-4000:])
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    keys, extra = bench_py_keys(Path(__file__).resolve().parent / "bench.py")
+    if set(line) != keys or set(line["extra"]) != extra | {
+            "infer_device_busy_share", "gpu"} \
+            or not np.isfinite(line["value"]) or line["value"] <= 0:
+        raise AssertionError(f"bench line: {line}")
+    print("bench", json.dumps(line))
+    print("bench wall", json.dumps({"wall_s": wall, "gpu": gpu}))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3456,6 +3830,14 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if "--bench" in sys.argv[1:]:
+        run_bench(gpu)
+        print(gpu)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if "--k1-splits" in sys.argv[1:]:
         k1_split_sweep(Q, dev)
         print(gpu)
@@ -3464,8 +3846,18 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    # wall s of each phase, printed before the kernels line
+    t_mark, phase_s = [time.perf_counter()], {}
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+
     # 2. each kernel against its plain version
     k1_rows = phase_k1(Q, dev)
+    mark("k1")
 
     # 3. the main path at full width, launches counted
     cfg = TacotronConfig(decode_quant="int8")
@@ -3477,45 +3869,56 @@ def main() -> int:
     launches = phase_serve(Q, TM, TI, params, bn, gen_params, cfg, h, dev,
                            gpu)
     profile_rows = phase_profile(TM, TI, params, bn, cfg, dev)
+    mark("serve_profile")
 
     # 4. the whole decode on the card against the CPU
     phase_whole_path(TM, TI, params_cpu, bn_cpu, cfg, dev)
     phase_gate_cost(TM, TI, L, params, bn, cfg, dev, gpu)
     del params, bn, gen_params
+    mark("whole_path_gate_cost")
 
     # 5. the training path: K2 and K3 against their plain versions, the
     #    full-width soft-DTW train step with launches counted, the f32 step
     #    on the card against the CPU, the training CLI
     sdtw_rows = phase_softdtw(
         SD, dev, ptxas_entries(reports["softdtw"], "softdtw_fwd_kernel"))
+    mark("softdtw")
     cfg_train = TacotronConfig(softdtw_loss_weight=1.0)
     k2_launches, k3_launches = phase_train(TT, SD, cfg_train, dev, gpu)
+    mark("train")
     phase_train_parity(TT, TM, cfg_train, dev)
     phase_train_cli(SD)
+    mark("train_parity_cli")
     real_k2, real_k3 = phase_train_real(SD, dev, gpu)
+    mark("train_real")
 
     # 6. the text -> wav CLI at full width: K1 counted on its path,
     #    Griffin-Lim, one f32 line on the card against the CPU
     cli_launches = phase_cli(Q, dev, gpu)
+    mark("cli")
 
     # 7. the after-training pipeline: GTA -> HiFi-GAN -> inference ->
     #    remove_silence -> evaluation (K3) -> checkpoint sweep (K1)
     after = phase_after_training(Q, SD, dev, gpu)
+    mark("after_training")
 
     # 8. the other five attention variants: serving, f32 decode and f32
     #    gradients card vs CPU, the soft-DTW train and eval steps, one DCA
     #    CLI line
     att, _ = phase_attention_variants(Q, SD, dev, gpu)
+    mark("attention_variants")
 
     # 9. WaveGlow (synthesis, training, reference import), the ONNX vocoder
     #    (K1 counted on its CLI line) and the tool CLIs (K1 on the demo)
     voc = phase_vocoders_and_tools(Q, dev, gpu)
+    mark("vocoders_and_tools")
 
     # 10. multi-rank training (parallel/mesh.py): the training CLI on one
     #     NCCL rank against the plain CLI, then meshes (2,1), (1,2), (2,2)
     #     of ranks sharing the card over gloo against the single-process
     #     step, K2 and K3 counted on every rank
     mr = phase_multi_rank(dev, gpu)
+    mark("multi_rank")
 
     # 11. the synthetic-corpus tools: make_synthetic_dataset -> the
     #     training CLI on it (K2 per step, K3 per validation batch) ->
@@ -3523,8 +3926,23 @@ def main() -> int:
     #     gan_batch_scaling at B = 4, 16, 32
     syn = phase_synthetic_tools(Q, SD, dev, gpu,
                                 gan_step_s=after["gan_step_s"])
+    mark("synthetic_tools")
 
-    # 12. the kernels line: K1 per decoder step of the served batch (B=4,
+    # 12. the measurement layer: the port's bench (pinned workload,
+    #     K2 in its soft-DTW train run), train_step_profile, serving_latency
+    #     (K1), kernel_evidence, gta_vocoder_smoke and infer_wav_demo on
+    #     the synthetic corpus
+    import shutil
+    try:
+        meas = phase_measurement(Q, SD, dev, gpu, profile_rows, syn)
+    finally:
+        shutil.rmtree(syn["root"], ignore_errors=True)
+    mark("measurement")
+    print("phase times", json.dumps({
+        "build_s": build_s, **{f"{k}_s": v for k, v in phase_s.items()},
+        "total_s": build_s + sum(phase_s.values()), "gpu": gpu}))
+
+    # 13. the kernels line: K1 per decoder step of the served batch (B=4,
     #    bf16 x): the attention-LSTM call plus the decoder-LSTM call, and the
     #    same at B=128; K2 and K3 at the train step's shape, 8 x 128 x 128
     def k1_step(B):
@@ -3544,14 +3962,16 @@ def main() -> int:
           "source": "tacotron2_subword_tpu_torch/csrc/dequant_int8_matmul.cu",
           "replaces": "tacotron2_subword_tpu/ops/quant.py:74",
           "launches": (launches + cli_launches + after["k1"] + att["k1"]
-                       + voc["k1_onnx"] + voc["k1_demo"] + syn["k1"]),
+                       + voc["k1_onnx"] + voc["k1_demo"] + syn["k1"]
+                       + meas["k1"]),
           "launches_by_path": {"serve": launches, "cli": cli_launches,
                                "after_training_inference": after["k1_infer"],
                                "checkpoint_sweep": after["k1_sweep"],
                                "attention_variants": att["k1"],
                                "onnx_cli_line": voc["k1_onnx"],
                                "demo": voc["k1_demo"],
-                               "synthetic": syn["k1"]},
+                               "synthetic": syn["k1"],
+                               "measurement": meas["k1"]},
           "cli_launches": cli_launches,
           "max_abs_err": max(r["max_abs_err"] for r in k1_rows
                              if r["x"] == "bf16"),
@@ -3591,7 +4011,8 @@ def main() -> int:
                          if key == "k2" else
                          "tacotron2_subword_tpu/ops/softdtw.py:507"),
             "launches": (step_launches + real_launches + eval_launches
-                         + att_launches + mr[key] + syn[key]),
+                         + att_launches + mr[key] + syn[key]
+                         + meas.get(key, 0)),
             "launches_by_path": {"train_step": step_launches,
                                  "train_cli_real_data": real_launches,
                                  "evaluation": eval_launches,
@@ -3599,7 +4020,8 @@ def main() -> int:
                                  "multi_rank": mr[key],
                                  "multi_rank_per_rank_by_mesh":
                                      mr[f"{key}_per_rank"],
-                                 "synthetic": syn[key]},
+                                 "synthetic": syn[key],
+                                 "measurement": meas.get(key, 0)},
             "max_abs_err": max(errs + ([r["max_abs_err"]
                                         for r in after["k3_shapes"]]
                                        if key == "k3" else [])),

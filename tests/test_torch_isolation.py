@@ -36,7 +36,10 @@ def test_port_has_the_slice_modules():
                  "apps.preprocess", "apps.demo", "apps.check_bert_emb",
                  "apps.dump_phone_id_map", "parallel", "parallel.mesh",
                  "tools.make_synthetic_dataset", "tools.train_tokenizer",
-                 "tools.eval_synthetic", "tools.gan_batch_scaling"):
+                 "tools.eval_synthetic", "tools.gan_batch_scaling",
+                 "bench", "utils.xprof", "tools.train_step_profile",
+                 "tools.serving_latency", "tools.kernel_evidence",
+                 "tools.gta_vocoder_smoke", "tools.infer_wav_demo"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
     # the G2P engine is built from the port's own copy of the C++ source,
     # check_bert_emb's default tokenizer is the port's own copy of the asset
@@ -51,11 +54,13 @@ def test_port_has_the_slice_modules():
     ("utils.logging_utils", "tensorboardX"), ("text.bert", "tokenizers"),
     ("text.bert", "transformers"), ("models.vocoder_runtimes", "tensorflow"),
     ("apps.check_bert_emb", "tokenizers"), ("apps.demo", "streamlit"),
-    ("tools.train_tokenizer", "tokenizers")])
+    ("tools.train_tokenizer", "tokenizers"),
+    ("utils.xprof", "torch.profiler")])
 def test_optional_packages_load_only_when_used(module, lazy):
     """The card's machine may lack PyYAML, matplotlib, tensorboardX,
     tokenizers, transformers, tensorflow and streamlit: importing the
-    modules that use them loads none of them."""
+    modules that use them loads none of them.  ``utils.xprof`` loads
+    torch's profiler only when it reads a trace."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('tacotron2_subword_tpu_torch.{module}')\n"
