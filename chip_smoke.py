@@ -2363,15 +2363,21 @@ def phase_vocoders_and_tools(Q, dev, gpu):
      4. ONNX: ``phase_cli``'s g_ file exported by the port's exporter, the
         executor on the card against ``generator_apply`` (ONNX_TOL) with
         both timed, one int8 CLI line with the .onnx vocoder (K1 == 2 x
-        steps, 32768 scaling, no denoiser) timed by stage, and the .tflite
-        path raising without tensorflow;
+        steps, 32768 scaling, no denoiser) timed by stage;
+     4b. TFLite, with tensorflow unimportable: the same g_ file exported by
+        the port's exporter at 256 frames (the CLI's bucket for 200 steps),
+        the executor on the card against ``generator_apply`` (ONNX_TOL),
+        both timed and their kernel launches counted, a 192-frame mel
+        refused, and one int8 CLI line with the .tflite vocoder (K1 == 2 x
+        steps, 32768 scaling, no denoiser) timed by stage;
      5. the tools: preprocess mels of the 16 corpus wavs on the card
         against the CPU (MEL_TOL of the scale) with ms per wav, phones,
         subwords (crc32), lists and check; dump_phone_id_map on the 7-word
         lexicon; check_bert_emb --fallback-vocabs; the demo on three
         sentences with the int8 decode (K1 == 2 x steps), wall per
         sentence.
-    Returns {k1_onnx, k1_demo}: the K1 launches of the counted runs."""
+    Returns {k1_onnx, k1_tflite, k1_demo}: the K1 launches of the counted
+    runs."""
     import importlib.util
     import os
     import shutil
@@ -2386,6 +2392,9 @@ def phase_vocoders_and_tools(Q, dev, gpu):
     from tacotron2_subword_tpu_torch.models import hifigan as HG
     from tacotron2_subword_tpu_torch.models import waveglow as WG
     from tacotron2_subword_tpu_torch.tools import export_hifigan_onnx as TEX
+    from tacotron2_subword_tpu_torch.tools import \
+        export_hifigan_tflite as TTX
+    from tacotron2_subword_tpu_torch.utils import tflite_lite as TL
     from tacotron2_subword_tpu_torch.utils.import_torch import \
         waveglow_params_from_torch_state_dict
     from tacotron2_subword_tpu_torch.utils.tree import (cast_floats,
@@ -2537,8 +2546,8 @@ def phase_vocoders_and_tools(Q, dev, gpu):
     onnx = str(root / "hifigan_v1.onnx")
     n_bytes = TEX.main(["--out", onnx, "--checkpoint", a["hifigan"],
                         "--config", a["config"]])
-    from tacotron2_subword_tpu_torch.models.vocoder_runtimes import \
-        load_onnx_vocoder
+    from tacotron2_subword_tpu_torch.models.vocoder_runtimes import (
+        load_onnx_vocoder, load_tflite_vocoder)
     h = HG.HifiganConfig()
     ck_g = torch.load(a["hifigan"], map_location="cpu", weights_only=True)
     native = HG.fuse_generator(HG.import_torch_generator(
@@ -2586,30 +2595,91 @@ def phase_vocoders_and_tools(Q, dev, gpu):
         raise AssertionError(f"onnx cli line: {n_done} lines, K1 {k1_onnx} "
                              f"in {r['steps_run']} steps, {wav.shape}, "
                              f"{sorted(r['times'])}")
-    import sys as _sys
-    had_tf = "tensorflow" in _sys.modules
-    saved_tf = _sys.modules.get("tensorflow")
-    _sys.modules["tensorflow"] = None
-    try:
-        TI.load_vocoder(str(root / "g.tflite"), None, dev)
-        raise AssertionError("the .tflite path ran without tensorflow")
-    except RuntimeError as e:
-        if "tensorflow is not installed" not in str(e):
-            raise
-    finally:
-        if had_tf:
-            _sys.modules["tensorflow"] = saved_tf
-        else:
-            del _sys.modules["tensorflow"]
     report["onnx"] = {
         "file_bytes": n_bytes, "mel_frames": 256,
         "executor_ms": t_onnx * 1e3, "native_ms": t_native * 1e3,
         "executor_vs_native": onnx_err, "cli_line": {
             "steps": r["steps_run"], "k1_launches": k1_onnx,
             "wall_ms": onnx_wall * 1e3,
-            **{f"{k}_ms": v * 1e3 for k, v in r["times"].items()}},
-        "tflite_without_tensorflow": "RuntimeError"}
+            **{f"{k}_ms": v * 1e3 for k, v in r["times"].items()}}}
     print("vocoders onnx", json.dumps(report["onnx"]))
+
+    # 4b. TFLite, with tensorflow unimportable throughout: the same g_ file
+    #    exported by the port's exporter at the CLI's 256-frame bucket, the
+    #    executor on the card against generator_apply, one int8 CLI line
+    absent = object()
+    saved_tf = sys.modules.get("tensorflow", absent)
+    sys.modules["tensorflow"] = None
+    try:
+        tfl = str(root / "hifigan_v1.tflite")
+        tfl_bytes = TTX.main(["--out", tfl, "--checkpoint", a["hifigan"],
+                              "--config", a["config"], "--frames", "256"])
+        with open(tfl, "rb") as f:
+            tfl_ops = len(TL.decode_model(f.read()).ops)
+        voc_t = load_tflite_vocoder(tfl, dev)
+        with torch.inference_mode():
+            t_tfl = _median_s(lambda: voc_t(mel))
+            t_nat = _median_s(lambda: HG.generator_apply(native, h, mel))
+            yt = voc_t(mel)
+            yn = HG.generator_apply(native, h, mel)[:, 0, :]
+            prof_t = profile_call(lambda: voc_t(mel))
+            prof_n = profile_call(lambda: HG.generator_apply(native, h, mel))
+        tfl_err = ((yt - yn).abs().max() / yn.abs().max()).item()
+        if yt.device != mel.device or not tfl_err <= ONNX_TOL:
+            raise AssertionError(f"tflite executor vs generator_apply: "
+                                 f"{tfl_err} on {yt.device}")
+        try:
+            voc_t(mel[:, :, :192])
+            raise AssertionError("the .tflite file ran a 192-frame mel")
+        except ValueError:
+            pass
+        results.clear()
+        TI.synthesize_text = spy
+        if importlib.util.find_spec("matplotlib") is None:
+            TI.save_plots = lambda *args: None
+        args = TI.build_argparser().parse_args(
+            cli_argv(a, str(root / "tflite_out"),
+                     "[decode_quant:int8-gate_threshold:1.1]", CLI_STEPS,
+                     str(dev), hifigan=False)
+            + ["--hifigan-checkpoint", tfl])
+        try:
+            Q.launches = 0
+            t0 = time.perf_counter()
+            n_done = TI.run_inference(args)
+            torch.cuda.synchronize()
+            tfl_wall = time.perf_counter() - t0
+            k1_tflite = Q.launches
+        finally:
+            TI.synthesize_text, TI.save_plots = synth_text, plots
+        r = results[0]
+        sr, wav = read(str(root / "tflite_out" / "audio" / "u0.wav"))
+        if not (n_done == 1
+                and k1_tflite == 2 * r["steps_run"] == 2 * CLI_STEPS
+                and sr == 22050 and wav.shape == (CLI_STEPS * 256,)
+                and "denoiser" not in r["times"] and np.abs(wav).max() > 0):
+            raise AssertionError(f"tflite cli line: {n_done} lines, K1 "
+                                 f"{k1_tflite} in {r['steps_run']} steps, "
+                                 f"{wav.shape}, {sorted(r['times'])}")
+        if sys.modules.get("tensorflow") is not None:
+            raise AssertionError("the .tflite path imported tensorflow")
+    finally:
+        if saved_tf is absent:
+            del sys.modules["tensorflow"]
+        else:
+            sys.modules["tensorflow"] = saved_tf
+    report["tflite"] = {
+        "file_bytes": tfl_bytes, "ops": tfl_ops, "mel_frames": 256,
+        "executor_ms": t_tfl * 1e3, "native_ms": t_nat * 1e3,
+        "executor_launches": prof_t["kernel_launches"],
+        "native_launches": prof_n["kernel_launches"],
+        "executor_device_ms": prof_t["device_ms"],
+        "native_device_ms": prof_n["device_ms"],
+        "executor_vs_native": tfl_err, "shape_192_raises": "ValueError",
+        "cli_line": {
+            "steps": r["steps_run"], "k1_launches": k1_tflite,
+            "wall_ms": tfl_wall * 1e3,
+            **{f"{k}_ms": v * 1e3 for k, v in r["times"].items()}}}
+    print("vocoders tflite", json.dumps(report["tflite"]))
 
     # 5. the tools
     wavs = sorted((data / "wav").glob("*.wav"))
@@ -2716,7 +2786,7 @@ def phase_vocoders_and_tools(Q, dev, gpu):
     print("vocoders tools", json.dumps(report["tools"]))
     shutil.rmtree(root, ignore_errors=True)
     print(f"vocoders and tools: {time.perf_counter() - t_phase:.1f} s")
-    return {"k1_onnx": k1_onnx, "k1_demo": k1_demo}
+    return {"k1_onnx": k1_onnx, "k1_tflite": k1_tflite, "k1_demo": k1_demo}
 
 
 MR_HPARAMS = "[softdtw_loss_weight:1.0-parity_mode:true]"
@@ -3962,13 +4032,15 @@ def main() -> int:
           "source": "tacotron2_subword_tpu_torch/csrc/dequant_int8_matmul.cu",
           "replaces": "tacotron2_subword_tpu/ops/quant.py:74",
           "launches": (launches + cli_launches + after["k1"] + att["k1"]
-                       + voc["k1_onnx"] + voc["k1_demo"] + syn["k1"]
+                       + voc["k1_onnx"] + voc["k1_tflite"] + voc["k1_demo"]
+                       + syn["k1"]
                        + meas["k1"]),
           "launches_by_path": {"serve": launches, "cli": cli_launches,
                                "after_training_inference": after["k1_infer"],
                                "checkpoint_sweep": after["k1_sweep"],
                                "attention_variants": att["k1"],
                                "onnx_cli_line": voc["k1_onnx"],
+                               "tflite_cli_line": voc["k1_tflite"],
                                "demo": voc["k1_demo"],
                                "synthetic": syn["k1"],
                                "measurement": meas["k1"]},

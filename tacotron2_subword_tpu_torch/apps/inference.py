@@ -25,10 +25,10 @@ K1 twice (ops/quant.py).
 
 Checkpoints: the port's own ``checkpoint_{step}/`` directories
 (utils/checkpoint.py) and reference torch ``checkpoint_{iter}`` files.
-``--hifigan-checkpoint`` also takes ``.onnx`` files (run on the device by
-``utils/onnx_lite``) and ``.tflite`` files (tensorflow's interpreter); as in
-the JAX CLI, those are scaled by 32768 and not denoised.  The JAX package's
-Orbax directories are not read: ``tools/orbax_to_torch.py`` converts them.
+``--hifigan-checkpoint`` also takes ``.onnx`` and ``.tflite`` files (run on
+the device by ``utils/onnx_lite`` and ``utils/tflite_lite``); as in the JAX
+CLI, those are scaled by 32768 and not denoised.  The JAX package's Orbax
+directories are not read: ``tools/orbax_to_torch.py`` converts them.
 
 ``synthesize`` is the batched serving core: pre-tokenised requests padded
 to one batch with their true lengths, decoded with per-sample gate stop and
@@ -170,9 +170,9 @@ def load_vocoder(hifigan_checkpoint: Optional[str],
     or fused) and its JSON config (v1 without one), fused for serving
     ("hifigan"); an ``.onnx`` file through the port's executor on
     ``device`` ("hifigan-onnx", reference inference.py:208-223); a
-    ``.tflite`` file through tensorflow's interpreter ("hifigan-tflite",
-    reference best_checkpoint.py:230-260); or, with no checkpoint,
-    Griffin-Lim (BASELINE config 1)."""
+    ``.tflite`` file through the port's TFLite executor on ``device``
+    ("hifigan-tflite", reference best_checkpoint.py:230-260); or, with no
+    checkpoint, Griffin-Lim (BASELINE config 1)."""
     if hifigan_checkpoint and hifigan_checkpoint.endswith(".onnx"):
         from tacotron2_subword_tpu_torch.models.vocoder_runtimes import \
             load_onnx_vocoder
@@ -180,7 +180,8 @@ def load_vocoder(hifigan_checkpoint: Optional[str],
     if hifigan_checkpoint and hifigan_checkpoint.endswith(".tflite"):
         from tacotron2_subword_tpu_torch.models.vocoder_runtimes import \
             load_tflite_vocoder
-        return load_tflite_vocoder(hifigan_checkpoint), "hifigan-tflite"
+        return (load_tflite_vocoder(hifigan_checkpoint, device),
+                "hifigan-tflite")
     if hifigan_checkpoint and os.path.isdir(hifigan_checkpoint):
         raise NotImplementedError(
             f"{hifigan_checkpoint}: Orbax generator directories of the JAX "

@@ -21,6 +21,7 @@ from tacotron2_subword_tpu_torch.models import tacotron2 as TM
 from tests.test_model import make_batch
 from tests.test_torch_train import (LOSS_CFG, OUT_KEYS, TOL, _batch, _np,
                                     _params, _port_cfg)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMA = "StepwiseMonotonicAttention"
 B, T, D, Q, A_DIM = 3, 9, 16, 20, 8

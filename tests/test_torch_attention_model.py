@@ -30,6 +30,7 @@ from tests.test_model import make_batch
 from tests.test_torch_train import (LOSS_CFG, OUT_KEYS, TOL, _batch,
                                     _check_grads, _forward_both, _leaves,
                                     _params, _port_cfg, jax_randomness)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMA = "StepwiseMonotonicAttention"
 OTHERS = [v for v in JA.VARIANTS if v != SMA]

@@ -32,6 +32,7 @@ from tacotron2_subword_tpu_torch.utils import checkpoint as TCK
 from tacotron2_subword_tpu_torch.utils import import_torch as TIT
 from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
 from tests.test_model import SMALL, make_batch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _leaves_equal(port_tree, jax_tree, path="tree", subset=False):

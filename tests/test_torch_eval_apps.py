@@ -47,6 +47,7 @@ from tests.test_apps_cli import HP as SMALL_HP
 from tests.test_model import SMALL
 from tests.test_torch_checkpoint import hifigan_state_dict
 from tests.test_torch_text import LEXICON, RESOURCE_NAMES
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 HP = SMALL_HP[:-1] + "-prenet_dropout_always_on:false]"
 SR = 22050

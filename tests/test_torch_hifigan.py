@@ -12,6 +12,7 @@ from tacotron2_subword_tpu.models import hifigan as HG
 from tacotron2_subword_tpu_torch.models import hifigan as THG
 from tacotron2_subword_tpu_torch.utils.import_jax import \
     hifigan_params_from_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _configs(resblock):

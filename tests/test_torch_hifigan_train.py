@@ -37,6 +37,7 @@ from tacotron2_subword_tpu_torch.utils.import_jax import (
     hifigan_discriminators_from_numpy, hifigan_params_from_numpy,
     optax_adam_state_from_numpy)
 from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMALL_H = dict(resblock="1", upsample_rates=(4, 4),
                upsample_kernel_sizes=(8, 8), upsample_initial_channel=32,

@@ -22,6 +22,7 @@ from tacotron2_subword_tpu_torch.apps import inference as TI
 from tacotron2_subword_tpu_torch.utils.import_jax import \
     tacotron2_params_from_numpy
 from tests.test_model import SMALL, make_batch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 OUT_KEYS = ("mel", "mel_postnet", "gate", "alignments", "alignments_bert")

@@ -34,6 +34,7 @@ from tests.test_apps_cli import HP as SMALL_HP
 from tests.test_model import SMALL
 from tests.test_torch_checkpoint import hifigan_state_dict
 from tests.test_torch_text import LEXICON, RESOURCE_NAMES
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 HP = SMALL_HP[:-1] + "-prenet_dropout_always_on:false-gate_threshold:0.45]"
 SCRIPT = "u0|ba me em\nu1|Nam, anh banh!\nu2|em nam an ba me nhanh\n"
@@ -185,20 +186,41 @@ def test_cli_needs_cuda_unless_told_cpu(assets, monkeypatch):
         TI.main(_argv(assets, "port_ck", "nocuda_out"))
 
 
-@pytest.mark.parametrize("name", ["g.onnx", "g.tflite", "orbax_dir"])
-def test_unported_vocoder_formats_raise(tmp_path, name, monkeypatch):
+@pytest.mark.parametrize("name", ["g.onnx", "orbax_dir"])
+def test_unported_vocoder_formats_raise(tmp_path, name):
     """Orbax generator directories are not read (the message names
-    tools/orbax_to_torch.py, which converts them);
-    an .onnx path is opened (a missing file raises), and a .tflite one
-    needs tensorflow."""
+    tools/orbax_to_torch.py, which converts them); an .onnx path is opened
+    (a missing file raises)."""
     path = tmp_path / name
     if name == "orbax_dir":
         path.mkdir()
         err, match = NotImplementedError, "tools/orbax_to_torch.py"
-    elif name == "g.onnx":
-        err, match = FileNotFoundError, "g.onnx"
     else:
-        monkeypatch.setitem(__import__("sys").modules, "tensorflow", None)
-        err, match = RuntimeError, "tensorflow is not installed"
+        err, match = FileNotFoundError, "g.onnx"
     with pytest.raises(err, match=match):
         TI.load_vocoder(str(path), None, "cpu")
+
+
+def test_tflite_vocoder_loads_and_runs_without_tensorflow(tmp_path,
+                                                          monkeypatch):
+    """A .tflite path loads with tensorflow unimportable and runs on the
+    device asked for, as "hifigan-tflite"."""
+    monkeypatch.setitem(__import__("sys").modules, "tensorflow", None)
+    from tacotron2_subword_tpu_torch.models import hifigan as THG
+    from tacotron2_subword_tpu_torch.tools import export_hifigan_tflite
+    h = THG.HifiganConfig(resblock="2", upsample_rates=(4,),
+                          upsample_kernel_sizes=(8,),
+                          upsample_initial_channel=8,
+                          resblock_kernel_sizes=(3,),
+                          resblock_dilation_sizes=((1, 2),), num_mels=80)
+    params = THG.init_generator(torch.Generator().manual_seed(0), h,
+                                device="cpu")
+    path = str(tmp_path / "g.tflite")
+    export_hifigan_tflite.export_tflite(params, h, path, frames=64)
+    vocode, name = TI.load_vocoder(path, None, "cpu")
+    mel = torch.randn(1, 80, 64, generator=torch.Generator().manual_seed(1))
+    out = vocode(mel)
+    ref = THG.generator_apply(THG.fuse_generator(params), h, mel)[:, 0, :]
+    assert name == "hifigan-tflite" and out.device == mel.device
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))

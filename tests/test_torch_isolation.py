@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 
 import tacotron2_subword_tpu_torch as port
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -39,7 +40,9 @@ def test_port_has_the_slice_modules():
                  "tools.eval_synthetic", "tools.gan_batch_scaling",
                  "bench", "utils.xprof", "tools.train_step_profile",
                  "tools.serving_latency", "tools.kernel_evidence",
-                 "tools.gta_vocoder_smoke", "tools.infer_wav_demo"):
+                 "tools.gta_vocoder_smoke", "tools.infer_wav_demo",
+                 "utils.tflite_lite", "tools.export_hifigan_tflite",
+                 "utils.loss_scaler"):
         assert f"tacotron2_subword_tpu_torch.{name}" in mods
     # the G2P engine is built from the port's own copy of the C++ source,
     # check_bert_emb's default tokenizer is the port's own copy of the asset
@@ -82,3 +85,32 @@ def test_port_imports_no_jax(banned):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("banned", ["tensorflow", "flatbuffers"])
+@pytest.mark.parametrize("module", ["models.vocoder_runtimes",
+                                    "utils.tflite_lite",
+                                    "tools.export_hifigan_tflite"])
+def test_tflite_path_loads_no_tensorflow(tmp_path, module, banned):
+    """The card's machine has neither tensorflow nor flatbuffers: importing
+    the TFLite modules, writing a file and running it loads neither."""
+    code = (
+        "import importlib, sys, torch\n"
+        f"importlib.import_module('tacotron2_subword_tpu_torch.{module}')\n"
+        "from tacotron2_subword_tpu_torch.models import hifigan as HG\n"
+        "from tacotron2_subword_tpu_torch.models import vocoder_runtimes\n"
+        "from tacotron2_subword_tpu_torch.tools import "
+        "export_hifigan_tflite as EX\n"
+        "h = HG.HifiganConfig(resblock='2', upsample_rates=(2,), "
+        "upsample_kernel_sizes=(4,), upsample_initial_channel=4, "
+        "resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1,),), "
+        "num_mels=4)\n"
+        "p = HG.init_generator(torch.Generator().manual_seed(0), h, 'cpu')\n"
+        f"EX.export_tflite(p, h, {str(tmp_path / 'g.tflite')!r}, frames=8)\n"
+        "voc = vocoder_runtimes.load_tflite_vocoder("
+        f"{str(tmp_path / 'g.tflite')!r}, 'cpu')\n"
+        "assert voc(torch.zeros(1, 4, 8)).shape == (1, 16)\n"
+        f"print({banned!r} in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "False"

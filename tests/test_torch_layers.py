@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from tacotron2_subword_tpu.nn import layers as JL
 from tacotron2_subword_tpu_torch.nn import layers as TL
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -39,6 +39,7 @@ from tacotron2_subword_tpu_torch.tools import train_step_profile as TSP
 from tacotron2_subword_tpu_torch.utils import xprof as PX
 from tests.test_model import SMALL
 from tests.test_tools import _write_synthetic_xplane
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 # the architecture of tests.test_model.SMALL with the vocabulary, mel and

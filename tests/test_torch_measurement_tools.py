@@ -43,6 +43,7 @@ from tacotron2_subword_tpu_torch.tools import serving_latency as SL
 from tacotron2_subword_tpu_torch.utils import checkpoint as CK
 from tests.test_apps_cli import HP as SMALL_HP
 from tests.test_torch_text import LEXICON, RESOURCE_NAMES
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 # the SMALL architecture with 80 mels (Griffin-Lim's filterbank)

@@ -46,6 +46,7 @@ from tacotron2_subword_tpu_torch.tools import eval_synthetic as TES
 from tacotron2_subword_tpu_torch.tools import make_synthetic_dataset as TMS
 from tacotron2_subword_tpu_torch.utils import checkpoint as TCK
 from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 DECODE_TOL = 2e-4
@@ -64,16 +65,6 @@ HIFIGAN = {"resblock": "1", "upsample_rates": [4, 2],
            "resblock_kernel_sizes": [3, 5],
            "resblock_dilation_sizes": [[1, 3], [1, 2]], "num_mels": 6,
            "sampling_rate": 22050}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's decodes here are thousands of tiny ops: with every core
-    per test worker, the suite's workers starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -58,6 +58,7 @@ from tests.test_model import SMALL
 from tests.test_torch_train import (OUT_KEYS, TOL, _batch, _check_grads,
                                     _jax_eval_step, _jax_train_step, _np,
                                     jax_randomness)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = SMALL.replace(n_symbols=24, sub_n_symbols=32, softdtw_loss_weight=1.0,

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from tacotron2_subword_tpu.ops import quant as Q
 from tacotron2_subword_tpu_torch.ops import quant as TQ
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _weights(shape, seed):

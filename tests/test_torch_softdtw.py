@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from tacotron2_subword_tpu.ops import softdtw as SD
 from tacotron2_subword_tpu_torch.ops import softdtw as TS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (B, N, M), bandwidth, gamma
 CASES = [((3, 8, 11), 0.0, 1.0), ((2, 9, 9), 2.0, 1.0),

@@ -18,6 +18,7 @@ from tacotron2_subword_tpu.models import denoiser as JD
 from tacotron2_subword_tpu.ops import stft as JS
 from tacotron2_subword_tpu_torch.models import denoiser as TD
 from tacotron2_subword_tpu_torch.ops import stft as TS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(1, 4096), (3, 5001), (2, 2309)]   # [B, T], T not a hop multiple
 GEOMETRY = (1024, 256, 1024)                 # filter, hop, window

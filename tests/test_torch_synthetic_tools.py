@@ -33,6 +33,7 @@ from tacotron2_subword_tpu_torch.tools import make_synthetic_dataset as TMS
 from tacotron2_subword_tpu_torch.tools import train_tokenizer as TTK
 from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
 from tests.test_torch_text import LEXICON, RESOURCE_NAMES
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 # a 256x generator narrow enough for the CPU (the discriminators have no

@@ -18,6 +18,7 @@ from tacotron2_subword_tpu_torch.text import fst_g2p as TF
 from tacotron2_subword_tpu_torch.text import g2p as TG
 from tacotron2_subword_tpu_torch.text import lexicon as TL
 from tacotron2_subword_tpu_torch.text import text_to_sequence as TT
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LEXICON = ("an a_1 n\nanh a_1 J\nba b a_1\nbanh b a_1 J\n"
            "em E_1 m\nme m E_1\nnam n a_1 m\n")

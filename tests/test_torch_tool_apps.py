@@ -43,6 +43,7 @@ from tests.test_model import SMALL
 from tests.test_torch_checkpoint import hifigan_state_dict
 from tests.test_torch_vocoder_runtimes import _unit_norm
 from tests.test_torch_text import LEXICON, RESOURCE_NAMES
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -36,6 +36,7 @@ from tacotron2_subword_tpu_torch.ops import ssim as TS
 from tacotron2_subword_tpu_torch.utils import checkpoint as TCK
 from tacotron2_subword_tpu_torch.utils.tree import tree_leaves
 from tests.test_model import SMALL
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_TRAIN, N_VAL = 6, 2
 # SMALL at the corpus's widths; soft-DTW, SSIM and the KL alignment on

@@ -2,7 +2,7 @@
 the ONNX encoder / decoder (utils/onnx_lite), the torch executor against
 JAX's numpy ``run_model``, the port's exporter against JAX
 tools/export_hifigan_onnx.py, ``load_vocoder`` and the inference CLI with
-an ``.onnx`` vocoder, and the TFLite path without tensorflow.
+an ``.onnx`` vocoder, and a ``.tflite`` vocoder run without tensorflow.
 
 Tolerances: encoded bytes and decoded graphs exactly; the executor 1e-5
 of the output's scale against JAX's numpy executor (the same f32
@@ -31,6 +31,7 @@ from tacotron2_subword_tpu_torch.utils import onnx_lite as TOX
 from tacotron2_subword_tpu_torch.utils.import_jax import \
     hifigan_params_from_numpy
 from tools import export_hifigan_onnx as JEX
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -301,10 +302,23 @@ def test_cli_onnx_line_matches_jax_cli(tmp_path, monkeypatch):
     assert "denoiser" not in seen[0]["times"]
 
 
-def test_tflite_without_tensorflow_raises(tmp_path, monkeypatch):
+def test_tflite_runs_on_the_asked_device_without_tensorflow(
+        tmp_path, monkeypatch):
+    """With tensorflow unimportable, a .tflite file (the port exporter's)
+    loads through ``load_tflite_vocoder`` and ``load_vocoder`` and runs on
+    the device asked for, matching generator_apply."""
     monkeypatch.setitem(sys.modules, "tensorflow", None)
+    from tacotron2_subword_tpu_torch.tools import export_hifigan_tflite
+    _, th, _, tp = _generator("v1", seed=9)
     path = str(tmp_path / "g.tflite")
-    with pytest.raises(RuntimeError, match="tensorflow is not installed"):
-        TVR.load_tflite_vocoder(path)
-    with pytest.raises(RuntimeError, match="tensorflow is not installed"):
-        TI.load_vocoder(path, None, "cpu")
+    export_hifigan_tflite.export_tflite(tp, th, path, frames=64)
+    mel = torch.from_numpy(np.random.RandomState(10).randn(1, 8, 64).astype(
+        np.float32))
+    ref = THG.generator_apply(THG.fuse_generator(tp), th, mel)[:, 0, :]
+    vocode, name = TI.load_vocoder(path, None, "cpu")
+    assert name == "hifigan-tflite"
+    for voc in (TVR.load_tflite_vocoder(path, torch.device("cpu")), vocode):
+        out = voc(mel)
+        assert out.device == mel.device and out.shape == ref.shape
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))

@@ -38,6 +38,7 @@ from tacotron2_subword_tpu_torch.utils.import_jax import \
 from tacotron2_subword_tpu_torch.utils.import_torch import \
     waveglow_params_from_torch_state_dict
 from tacotron2_subword_tpu_torch.utils.tree import cast_floats
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
