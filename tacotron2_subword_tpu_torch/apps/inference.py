@@ -56,6 +56,7 @@ from tacotron2_subword_tpu_torch.models import denoiser as DN
 from tacotron2_subword_tpu_torch.models import hifigan as HG
 from tacotron2_subword_tpu_torch.models import tacotron2 as M
 from tacotron2_subword_tpu_torch.ops import stft as S
+from tacotron2_subword_tpu_torch.utils import trace
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 
 MAX_WAV_VALUE = 32768.0 * 1.7  # reference inference.py:196
@@ -94,16 +95,21 @@ def vocode_bucketed(vocode: Vocoder, mel: torch.Tensor,
     gate-fires-on-first-frame quirk, model.py:461-467 — would leave nothing
     after the iSTFT's edge trimming), the rest and the pad up to a multiple
     of BUCKET frames are filled with the silence floor, and each waveform
-    is cut back to max(n, 8) * hop samples."""
-    n = [max(int(v), MIN_FRAMES) for v in n_frames]
-    pad_f = -(-max(n) // BUCKET) * BUCKET
-    m = mel[:, :, :max(n)]
-    m = F.pad(m, (0, pad_f - m.shape[-1]), value=MEL_FLOOR)
-    keep = (torch.arange(pad_f, device=mel.device)[None, :]
-            < torch.tensor(n, device=mel.device)[:, None])
-    m = torch.where(keep[:, None, :], m, torch.full_like(m, MEL_FLOOR))
-    wav = vocode(m)
-    return [wav[i, :n[i] * hop] for i in range(len(n))]
+    is cut back to max(n, 8) * hop samples.  Counts the frames vocoded
+    (``vocoder.frames_run``) and those kept (``vocoder.frames_live``)."""
+    with trace.span("serve.vocode"):
+        n = [max(int(v), MIN_FRAMES) for v in n_frames]
+        pad_f = -(-max(n) // BUCKET) * BUCKET
+        if trace.enabled():
+            trace.count("vocoder.frames_run", len(n) * pad_f)
+            trace.count("vocoder.frames_live", sum(n))
+        m = mel[:, :, :max(n)]
+        m = F.pad(m, (0, pad_f - m.shape[-1]), value=MEL_FLOOR)
+        keep = (torch.arange(pad_f, device=mel.device)[None, :]
+                < torch.tensor(n, device=mel.device)[:, None])
+        m = torch.where(keep[:, None, :], m, torch.full_like(m, MEL_FLOOR))
+        wav = vocode(m)
+        return [wav[i, :n[i] * hop] for i in range(len(n))]
 
 
 @torch.inference_mode()
@@ -116,18 +122,31 @@ def synthesize(params, bn, gen_params, cfg: TacotronConfig,
     waveform per request, scaled by MAX_WAV_VALUE and clipped to the int16
     range), ``mel_postnet``, ``mel_lengths``, ``infer_ok`` and
     ``steps_run`` (decoder steps executed).  Params and ``generator`` live
-    on ``device``."""
+    on ``device``.  Counts the decode's row-steps (B x steps run) and those
+    up to each row's stop, from the lengths it reads anyway
+    (``utils.trace``)."""
     device = resolve_device(device)
-    text, sub, cls_p, cls_s, t_len, s_len = pad_requests(requests, device)
+    with trace.span("serve.pad_requests"):
+        text, sub, cls_p, cls_s, t_len, s_len = pad_requests(requests,
+                                                             device)
     out = M.infer(params, bn, cfg, text, sub, cls_p, cls_s,
                   generator=generator, max_steps=max_steps,
                   gate_threshold=gate_threshold, text_lengths=t_len,
                   sub_lengths=s_len)
+    with trace.span("serve.read_lengths"):
+        lengths = out["mel_lengths"].tolist()
+    if trace.enabled():
+        trace.count("serve.batches")
+        trace.count("serve.sentences", len(lengths))
+        trace.count("decode.row_steps", len(lengths) * out["steps_run"])
+        trace.count("decode.live_row_steps",
+                    sum(n // cfg.n_frames_per_step for n in lengths))
     wavs = vocode_bucketed(
         lambda m: HG.generator_apply(gen_params, h, m)[:, 0, :],
-        out["mel_postnet"], out["mel_lengths"].tolist(), hop=cfg.hop_length)
-    out["wavs"] = [torch.clamp(w * MAX_WAV_VALUE, -32768.0, 32767.0)
-                   for w in wavs]
+        out["mel_postnet"], lengths, hop=cfg.hop_length)
+    with trace.span("serve.scale"):
+        out["wavs"] = [torch.clamp(w * MAX_WAV_VALUE, -32768.0, 32767.0)
+                       for w in wavs]
     return out
 
 

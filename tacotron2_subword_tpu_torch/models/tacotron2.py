@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from tacotron2_subword_tpu_torch.config import TacotronConfig
 from tacotron2_subword_tpu_torch.models import attention as A
 from tacotron2_subword_tpu_torch.nn import layers as L
+from tacotron2_subword_tpu_torch.utils import trace
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 from tacotron2_subword_tpu_torch.utils.tree import (
     cast_floats, to_device, tree_leaves, tree_map, tree_stack, tree_unflatten)
@@ -605,7 +606,10 @@ def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
     (False where max steps was hit) and steps_run (decoder steps executed,
     an int), where S = max_steps and r = n_frames_per_step.  With
     ``cfg.prenet_dropout_always_on`` the prenet masks come from
-    ``generator``, which must live on memory's device."""
+    ``generator``, which must live on memory's device.  With ``utils.trace``
+    on, records the spans ``decode.prepare``, ``decode.loop`` (its
+    ``decode.sync`` reads inside) and ``decode.finish``, and counts
+    ``decode.steps`` and ``decode.syncs``."""
     S = int(max_steps or cfg.max_decoder_steps)
     thresh = cfg.gate_threshold if gate_threshold is None else gate_threshold
     B, dev = memory.shape[0], memory.device
@@ -613,79 +617,92 @@ def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
     if cfg.prenet_dropout_always_on and generator is None:
         raise ValueError("prenet dropout is on: pass a torch.Generator")
 
-    dtype = _compute_dtype(cfg)
-    dp = cast_floats(dp, dtype)
-    memory, memory_b = memory.to(dtype), memory_b.to(dtype)
-    T_text, T_sub = memory.shape[1], memory_b.shape[1]
-    T = max(T_text, T_sub)
-    rnn_s, att_s, dec_rnn = _stack_stream_params(dp, cfg.decode_quant)
-    memory_s = torch.stack([_pad_T(memory, T, axis=1),
-                            _pad_T(memory_b, T, axis=1)])
-    proc_mem_s = torch.stack([
-        _pad_T(A.process_memory(dp["attention"], memory), T, axis=1),
-        _pad_T(A.process_memory(dp["attention_bert"], memory_b), T, axis=1)])
-    if text_lengths is None:
-        # unmasked inference; the padded slots of the stack are masked
-        text_lengths = torch.full((B,), T_text, device=dev)
-        sub_lengths = torch.full((B,), T_sub, device=dev)
-    mask_s = torch.stack([sequence_mask(text_lengths.to(dev), T),
-                          sequence_mask(sub_lengths.to(dev), T)])
+    with trace.span("decode.prepare"):
+        dtype = _compute_dtype(cfg)
+        dp = cast_floats(dp, dtype)
+        memory, memory_b = memory.to(dtype), memory_b.to(dtype)
+        T_text, T_sub = memory.shape[1], memory_b.shape[1]
+        T = max(T_text, T_sub)
+        rnn_s, att_s, dec_rnn = _stack_stream_params(dp, cfg.decode_quant)
+        memory_s = torch.stack([_pad_T(memory, T, axis=1),
+                                _pad_T(memory_b, T, axis=1)])
+        proc_mem_s = torch.stack([
+            _pad_T(A.process_memory(dp["attention"], memory), T, axis=1),
+            _pad_T(A.process_memory(dp["attention_bert"], memory_b), T,
+                   axis=1)])
+        if text_lengths is None:
+            # unmasked inference; the padded slots of the stack are masked
+            text_lengths = torch.full((B,), T_text, device=dev)
+            sub_lengths = torch.full((B,), T_sub, device=dev)
+        mask_s = torch.stack([sequence_mask(text_lengths.to(dev), T),
+                              sequence_mask(sub_lengths.to(dev), T)])
 
-    carry = _decoder_carry_init(cfg, B, T, dtype, dev)
-    mel_buf = torch.zeros((S, B, M * r), dtype=dtype, device=dev)
-    gate_buf = torch.full((S, B), GATE_PAD_VALUE, dtype=dtype, device=dev)
-    align_buf = torch.zeros((S, 2, B, T), dtype=dtype, device=dev)
-    finished = torch.zeros(B, dtype=torch.bool, device=dev)
-    lengths = torch.zeros(B, dtype=torch.long, device=dev)
-    prev = torch.zeros((B, M * r), dtype=dtype, device=dev)
+        carry = _decoder_carry_init(cfg, B, T, dtype, dev)
+        mel_buf = torch.zeros((S, B, M * r), dtype=dtype, device=dev)
+        gate_buf = torch.full((S, B), GATE_PAD_VALUE, dtype=dtype, device=dev)
+        align_buf = torch.zeros((S, 2, B, T), dtype=dtype, device=dev)
+        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        lengths = torch.zeros(B, dtype=torch.long, device=dev)
+        prev = torch.zeros((B, M * r), dtype=dtype, device=dev)
 
     steps_run = 0
-    for t in range(S):
-        if cfg.prenet_dropout_always_on:
-            m = _prenet_masks(generator, 4, (B, cfg.prenet_dim), dtype, dev)
-            masks, masks_b = (m[0], m[1]), (m[2], m[3])
-        else:
-            masks = masks_b = None
-        pre_ts = torch.stack([prenet_apply(dp["prenet"], prev, masks),
-                              prenet_apply(dp["prenet_bert"], prev, masks_b)])
-        carry, hidden_ctx, w_s, _ = _decode_step(
-            rnn_s, att_s, dec_rnn, cfg, carry, pre_ts, memory_s, proc_mem_s,
-            mask_s)
-        mel_t = L.linear_apply(dp["linear_projection"], hidden_ctx)
-        gate_t = L.linear_apply(dp["gate_layer"], hidden_ctx)[..., 0]
-        mel_buf[t] = mel_t
-        gate_buf[t] = gate_t
-        align_buf[t] = w_s
-        fired = torch.sigmoid(gate_t) > thresh
-        # the stop frame is included
-        lengths = lengths.masked_fill(fired & ~finished, t + 1)
-        finished = finished | fired
-        prev = mel_t
-        steps_run = t + 1
-        if steps_run % SYNC_EVERY == 0 and bool(finished.all()):
-            break
+    with trace.span("decode.loop"):
+        for t in range(S):
+            if cfg.prenet_dropout_always_on:
+                m = _prenet_masks(generator, 4, (B, cfg.prenet_dim), dtype,
+                                  dev)
+                masks, masks_b = (m[0], m[1]), (m[2], m[3])
+            else:
+                masks = masks_b = None
+            pre_ts = torch.stack([
+                prenet_apply(dp["prenet"], prev, masks),
+                prenet_apply(dp["prenet_bert"], prev, masks_b)])
+            carry, hidden_ctx, w_s, _ = _decode_step(
+                rnn_s, att_s, dec_rnn, cfg, carry, pre_ts, memory_s,
+                proc_mem_s, mask_s)
+            mel_t = L.linear_apply(dp["linear_projection"], hidden_ctx)
+            gate_t = L.linear_apply(dp["gate_layer"], hidden_ctx)[..., 0]
+            mel_buf[t] = mel_t
+            gate_buf[t] = gate_t
+            align_buf[t] = w_s
+            fired = torch.sigmoid(gate_t) > thresh
+            # the stop frame is included
+            lengths = lengths.masked_fill(fired & ~finished, t + 1)
+            finished = finished | fired
+            prev = mel_t
+            steps_run = t + 1
+            if steps_run % SYNC_EVERY == 0:
+                with trace.span("decode.sync"):
+                    done = bool(finished.all())
+                if done:
+                    break
+    trace.count("decode.steps", steps_run)
+    trace.count("decode.syncs", steps_run // SYNC_EVERY)
 
-    # samples that never fired ran to max steps (infer_ok False)
-    step_lengths = torch.where(finished, lengths,
-                               torch.full_like(lengths, steps_run))
-    valid = sequence_mask(step_lengths, S)                 # [B, S]
-    frame_valid = valid.repeat_interleave(r, dim=1)        # [B, S*r]
-    mel_frames = mel_buf.permute(1, 0, 2).reshape(B, S * r, M)
-    mel = (mel_frames.transpose(1, 2) * frame_valid[:, None, :]).float()
-    gate = torch.where(valid, gate_buf.t().float(),
-                       torch.full_like(valid, GATE_PAD_VALUE,
-                                       dtype=torch.float32))
-    vf = valid[:, :, None].float()
-    return {
-        "mel": mel,
-        "gate": gate,
-        "alignments": align_buf[:, 0, :, :T_text].permute(1, 0, 2).float() * vf,
-        "alignments_bert": (align_buf[:, 1, :, :T_sub].permute(1, 0, 2).float()
-                            * vf),
-        "mel_lengths": step_lengths * r,
-        "infer_ok": finished,
-        "steps_run": steps_run,
-    }
+    with trace.span("decode.finish"):
+        # samples that never fired ran to max steps (infer_ok False)
+        step_lengths = torch.where(finished, lengths,
+                                   torch.full_like(lengths, steps_run))
+        valid = sequence_mask(step_lengths, S)                 # [B, S]
+        frame_valid = valid.repeat_interleave(r, dim=1)        # [B, S*r]
+        mel_frames = mel_buf.permute(1, 0, 2).reshape(B, S * r, M)
+        mel = (mel_frames.transpose(1, 2) * frame_valid[:, None, :]).float()
+        gate = torch.where(valid, gate_buf.t().float(),
+                           torch.full_like(valid, GATE_PAD_VALUE,
+                                           dtype=torch.float32))
+        vf = valid[:, :, None].float()
+        out = {
+            "mel": mel,
+            "gate": gate,
+            "alignments": (align_buf[:, 0, :, :T_text].permute(1, 0, 2)
+                           .float() * vf),
+            "alignments_bert": (align_buf[:, 1, :, :T_sub].permute(1, 0, 2)
+                                .float() * vf),
+            "mel_lengths": step_lengths * r,
+            "infer_ok": finished,
+            "steps_run": steps_run,
+        }
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -780,21 +797,25 @@ def infer(params, bn_state, cfg: TacotronConfig, text, sub, cls_phone,
     plus mel_postnet [B, n_mels, S*r].  All inputs on one device; optional
     lengths make padded batches exact."""
     dtype = _compute_dtype(cfg)
-    memory, _ = _encode_stream(params["encoder"], bn_state["encoder"],
-                               params["embedding"], text, text_lengths,
-                               cls_phone, params["linear_converter"], dtype)
-    memory_b, _ = _encode_stream(params["encoder_sub"],
-                                 bn_state["encoder_sub"],
-                                 params["embedding_sub"], sub, sub_lengths,
-                                 cls_sub, params["linear_converter_sub"],
-                                 dtype)
+    with trace.span("serve.encode"):
+        memory, _ = _encode_stream(params["encoder"], bn_state["encoder"],
+                                   params["embedding"], text, text_lengths,
+                                   cls_phone, params["linear_converter"],
+                                   dtype)
+        memory_b, _ = _encode_stream(params["encoder_sub"],
+                                     bn_state["encoder_sub"],
+                                     params["embedding_sub"], sub,
+                                     sub_lengths, cls_sub,
+                                     params["linear_converter_sub"], dtype)
     out = decoder_infer(params["decoder"], cfg, memory, memory_b,
                         generator=generator, max_steps=max_steps,
                         gate_threshold=gate_threshold,
                         text_lengths=text_lengths, sub_lengths=sub_lengths)
-    residual, _ = postnet_apply(cast_floats(params["postnet"], dtype),
-                                bn_state["postnet"], out["mel"].to(dtype))
-    valid = sequence_mask(out["mel_lengths"], out["mel"].shape[-1])
-    out["mel_postnet"] = ((out["mel"] + residual.float())
-                          * valid[:, None, :])
+    with trace.span("serve.postnet"):
+        residual, _ = postnet_apply(cast_floats(params["postnet"], dtype),
+                                    bn_state["postnet"],
+                                    out["mel"].to(dtype))
+        valid = sequence_mask(out["mel_lengths"], out["mel"].shape[-1])
+        out["mel_postnet"] = ((out["mel"] + residual.float())
+                              * valid[:, None, :])
     return out
