@@ -10,7 +10,9 @@ the port at full width:
  - serving: K1 against its plain version (two runs bit-equal, its PTX
    holding mma.sync, warm and cold-L2 times), 4 requests served (int8
    decode -> postnet -> HiFi-GAN) with K1's launches counted, a profile of
-   the decode loop (no split-K reduce kernel), the f32 decode on the card
+   the decode loop (no split-K reduce kernel), the served decode as CUDA
+   graph replays bit-equal to the eager loop (``phase_decode_graph``,
+   K1 counted), the f32 decode on the card
    against the CPU, and the cost of the f32 LSTM gates on the
    non-quantized bf16 decode;
  - training: K2 (both variants: shared memory, and the global one forced)
@@ -564,6 +566,74 @@ def phase_serve(Q, TM, TI, params, bn, gen_params, cfg, h, dev, gpu):
                 decode(make_requests(cfg, [(64, 32)] * 128, seed=3), 4)):
         print("decode", json.dumps(row))
     return launches
+
+
+def phase_decode_graph(Q, TM, TI, params, bn, gen_params, cfg, h, dev, gpu,
+                       B=128, steps=200):
+    """The served int8 decode both ways: as CUDA graph replays (the
+    default on the card) and as the eager loop (``TM._graphable`` patched
+    off), B requests of 64 / 32 IDs, ``steps`` steps that no gate stops (a
+    partial last chunk).  Every output, the wavs and the generator's state
+    after are bit-equal; K1 launches 2 x steps both ways.  With the graph
+    cache emptied first, the first graphed batch warms up and captures,
+    the second only replays: the host's time in each decode loop
+    (``decode.loop`` spans) is reported beside the eager loop's."""
+    from tacotron2_subword_tpu_torch.utils import trace
+    reqs = make_requests(cfg, [(64, 32)] * B, seed=11)
+    real = TM._graphable
+    TM._graphs.clear()   # phase_profile's decodes left graphs of this shape
+    rows = {}
+    for name, graph in (("graph_first", True), ("graph", True),
+                        ("eager", False)):
+        TM._graphable = lambda device, g=graph: g
+        gen = torch.Generator(device=dev).manual_seed(3)
+        try:
+            Q.launches = 0
+            trace.enable()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = TI.synthesize(params, bn, gen_params, cfg, h, reqs,
+                                generator=gen, device=dev, max_steps=steps,
+                                gate_threshold=1.1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            trace.disable()
+            TM._graphable = real
+        rec = trace.take()
+        loop_s = sum(sp.end_ns - sp.start_ns for sp in rec.spans
+                     if sp.name == "decode.loop") / 1e9
+        rows[name] = (out, gen.get_state(), Q.launches, wall, loop_s,
+                      rec.counters)
+    eager = rows["eager"][0]
+    if eager["steps_run"] != steps:
+        raise AssertionError(f"decode graph: {eager['steps_run']} steps")
+    report = {"B": B, "steps": steps, "gpu": gpu}
+    for name, (out, state, k1, wall, loop_s, c) in rows.items():
+        same = [k for k in ("mel_postnet", "gate", "alignments",
+                            "alignments_bert", "mel_lengths", "infer_ok")
+                if torch.equal(out[k], eager[k])]
+        if not (len(same) == 6 and out["steps_run"] == steps
+                and all(torch.equal(a, b) for a, b in
+                        zip(out["wavs"], eager["wavs"]))
+                and torch.equal(state, rows["eager"][1])
+                and k1 == 2 * steps
+                and c["decode.graph_replays"] * TM.SYNC_EVERY
+                + c["decode.eager_steps"] == steps):
+            raise AssertionError(f"decode graph: {name} differs from the "
+                                 f"eager loop (equal: {same}), K1 {k1}, "
+                                 f"counters {c}")
+        report[name] = {"serve_wall_s": wall,
+                        "decode_loop_us_per_step": loop_s / steps * 1e6,
+                        "k1_launches": k1,
+                        **{k.split(".")[1]: c[k] for k in (
+                            "decode.graph_captures", "decode.graph_replays",
+                            "decode.eager_steps")}}
+    if (report["graph_first"]["graph_captures"], report["graph"][
+            "graph_captures"]) != (1, 0):
+        raise AssertionError(f"decode graph: captures {report}")
+    print("decode graph", json.dumps(report))
+    return report
 
 
 PROFILE_STEPS = 32
@@ -3229,8 +3299,8 @@ def phase_synthetic_tools(Q, SD, dev, gpu, gan_step_s):
          int8, 16 utterances, 256 steps, gates 0.5 and 0.25: K1 == 2 x the
          decode steps, one CSV row per (checkpoint, gate); run again, every
          row is skipped and nothing is decoded; one f32 row on the card
-         against the tool with --cpu, the same prenet masks on both
-         (SYN_PARITY_*);
+         against the tool with --cpu, the CPU given the card's prenet
+         masks (SYN_PARITY_*);
      (d) gan_batch_scaling at B = 4, 16, 32: ms/it, segments/s, audio-s/s
          and peak memory per B, B=16 held to ``gan_step_s`` (the step time
          of phase_after_training).
@@ -3368,21 +3438,23 @@ def phase_synthetic_tools(Q, SD, dev, gpu, gan_step_s):
     f32 = ["--data", str(data), "--checkpoint", str(ckpts[1]), "--hparams",
            "[parity_mode:true]", "--n", str(SYN_PARITY_N),
            "--max-steps", str(SYN_PARITY_STEPS), "--gate-thresholds", "1.1"]
-    gen = torch.Generator().manual_seed(TES.MASK_SEED)
+    # the card's decode draws its own masks (as CUDA graph replays, which
+    # hold no mask from the host); the CPU's decode is given the same draws
+    gen = torch.Generator(device=dev).manual_seed(TES.MASK_SEED)
     masks = [TM._prenet_masks(gen, 4, (SYN_PARITY_N, cfg.prenet_dim),
-                              torch.float32, torch.device("cpu"))
+                              torch.float32, dev).cpu()
              for _ in range(SYN_PARITY_STEPS)]
-    undo = fixed_prenet_masks(TM, masks)
-    try:
-        parity = {}
-        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
-            extra = ["--cpu"] if d.type == "cpu" else []
+    parity = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        extra = ["--cpu"] if d.type == "cpu" else []
+        undo = fixed_prenet_masks(TM, masks) if extra else (lambda: None)
+        try:
             with contextlib.redirect_stdout(io.StringIO()):
                 r = TES.main(f32 + ["--out-csv", str(root / f"{name}.csv")]
                              + extra)
-            parity[name] = (r["rows"], r["mel_postnet"])
-    finally:
-        undo()
+        finally:
+            undo()
+        parity[name] = (r["rows"], r["mel_postnet"])
     (rc, mc), (rp, mp) = parity["card"], parity["cpu"]
     mel_d = float(np.abs(mc - mp).max())
     mel_tol = SYN_PARITY_TOL * float(np.abs(mp).max())
@@ -3940,6 +4012,9 @@ def main() -> int:
                            gpu)
     profile_rows = phase_profile(TM, TI, params, bn, cfg, dev)
     mark("serve_profile")
+    decode_graph = phase_decode_graph(Q, TM, TI, params, bn, gen_params, cfg,
+                                      h, dev, gpu)
+    mark("decode_graph")
 
     # 4. the whole decode on the card against the CPU
     phase_whole_path(TM, TI, params_cpu, bn_cpu, cfg, dev)
@@ -4034,8 +4109,13 @@ def main() -> int:
           "launches": (launches + cli_launches + after["k1"] + att["k1"]
                        + voc["k1_onnx"] + voc["k1_tflite"] + voc["k1_demo"]
                        + syn["k1"]
-                       + meas["k1"]),
+                       + meas["k1"]
+                       + sum(decode_graph[k]["k1_launches"] for k in (
+                           "graph_first", "graph", "eager"))),
           "launches_by_path": {"serve": launches, "cli": cli_launches,
+                               "decode_graph": {k: decode_graph[k][
+                                   "k1_launches"] for k in (
+                                   "graph_first", "graph", "eager")},
                                "after_training_inference": after["k1_infer"],
                                "checkpoint_sweep": after["k1_sweep"],
                                "attention_variants": att["k1"],

@@ -17,7 +17,9 @@ on the int8 kernel K1 (ops/quant.py).
 Free-running decode stops each sample on its own gate (the stop frame is
 included).  The loop reads "all finished" on the host only every
 SYNC_EVERY steps; the outputs are masked by each sample's length, so
-the steps run after the last sample stopped change nothing.
+the steps run after the last sample stopped change nothing.  On a CUDA
+device those SYNC_EVERY steps are one CUDA graph, captured once a shape
+and replayed (``_DecodeGraph``).
 
 Teacher-forced training (``forward``) takes all of its randomness
 (dropout keep-masks, SMA's noise) from one dict, drawn up front by
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 from tacotron2_subword_tpu_torch.config import TacotronConfig
 from tacotron2_subword_tpu_torch.models import attention as A
 from tacotron2_subword_tpu_torch.nn import layers as L
+from tacotron2_subword_tpu_torch.ops import quant as Q
 from tacotron2_subword_tpu_torch.utils import trace
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 from tacotron2_subword_tpu_torch.utils.tree import (
@@ -508,9 +511,13 @@ def make_randomness(cfg: TacotronConfig, B: int, T_text: int, T_sub: int,
 
 def _scaled(mask: torch.Tensor, rate: float, dtype) -> torch.Tensor:
     """A boolean keep-mask as multipliers 0 or 1/(1-rate), divided in
-    ``dtype`` as the JAX package divides."""
-    return mask.to(dtype) / torch.tensor(1.0 - rate, dtype=dtype,
-                                         device=mask.device)
+    ``dtype`` as the JAX package divides.  The divisor is a 0-d CPU tensor
+    already rounded to ``dtype``: a device kernel takes it as a scalar, so
+    nothing is copied to the device and the host does not wait (a CUDA
+    graph can hold the division).  A device kernel may multiply by the
+    divisor's reciprocal instead, which gives the same result on the mask's
+    0 and 1."""
+    return mask.to(dtype) / torch.tensor(1.0 - rate, dtype=dtype)
 
 
 def decoder_teacher_forced(dp, cfg: TacotronConfig, memory, memory_b, mels,
@@ -592,6 +599,193 @@ def decoder_teacher_forced(dp, cfg: TacotronConfig, memory, memory_b, mels,
             ws[:, 1, :, :T_sub].transpose(0, 1).float())
 
 
+class _LoopState(NamedTuple):
+    """What one free-running step hands the next."""
+    carry: DecoderCarry
+    prev: torch.Tensor       # [B, n_mels * r] the last frame group
+    lengths: torch.Tensor    # [B] steps up to each sample's stop, long
+    finished: torch.Tensor   # [B] bool: the sample's gate has fired
+
+
+def _infer_step(cfg: TacotronConfig, thresh: float, generator, li,
+                st: _LoopState, t_next):
+    """One free-running step on the loop's inputs ``li`` (see
+    ``decoder_infer``): (new state, mel [B, n_mels * r], gate [B], weights
+    [2, B, T]).  ``t_next`` is the number of steps run once this one is: an
+    int, or a 0-d device tensor inside a CUDA graph."""
+    dp = li["dp"]
+    if cfg.prenet_dropout_always_on:
+        m = _prenet_masks(generator, 4, (st.prev.shape[0], cfg.prenet_dim),
+                          st.prev.dtype, st.prev.device)
+        masks, masks_b = (m[0], m[1]), (m[2], m[3])
+    else:
+        masks = masks_b = None
+    pre_ts = torch.stack([prenet_apply(dp["prenet"], st.prev, masks),
+                          prenet_apply(dp["prenet_bert"], st.prev, masks_b)])
+    carry, hidden_ctx, w_s, _ = _decode_step(
+        li["rnn_s"], li["att_s"], li["dec_rnn"], cfg, st.carry, pre_ts,
+        li["memory_s"], li["proc_mem_s"], li["mask_s"])
+    mel_t = L.linear_apply(dp["linear_projection"], hidden_ctx)
+    gate_t = L.linear_apply(dp["gate_layer"], hidden_ctx)[..., 0]
+    fired = torch.sigmoid(gate_t) > thresh
+    # the stop frame is included
+    lengths = torch.where(fired & ~st.finished, t_next, st.lengths)
+    return (_LoopState(carry, mel_t, lengths, st.finished | fired), mel_t,
+            gate_t, w_s)
+
+
+def _all_finished(st: _LoopState) -> bool:
+    """The host's read of "all finished" (waits for the device)."""
+    with trace.span("decode.sync"):
+        return bool(st.finished.all())
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tree's tensors in ``tree_leaves``' order (the carry's None
+    fields left out)."""
+    return [t for t in tree_leaves(tree) if t is not None]
+
+
+def _decode_eager(cfg, thresh, generator, li, st, bufs, t0: int, S: int,
+                  tally: Dict[str, int]):
+    """Steps t0 .. S-1 one by one, writing step t's outputs to ``bufs``
+    (mel, gate, weights; each [S, ...]) at t, with "all finished" read
+    after every SYNC_EVERY-th step: (steps run, state)."""
+    t = t0
+    while t < S:
+        st, *outs = _infer_step(cfg, thresh, generator, li, st, t + 1)
+        for b, o in zip(bufs, outs):
+            b[t] = o
+        t += 1
+        if t % SYNC_EVERY == 0 and _all_finished(st):
+            break
+    tally["eager_steps"] += t - t0
+    return t, st
+
+
+GRAPH_CACHE = 4  # decode graphs kept (one a shape); the least recent goes
+_graphs: Dict[tuple, "_DecodeGraph"] = {}
+
+
+def _graphable(device: torch.device) -> bool:
+    """Whether the decode on ``device`` runs as CUDA graph replays."""
+    return device.type == "cuda"
+
+
+class _DecodeGraph:
+    """SYNC_EVERY decode steps as one CUDA graph, for one shape.
+
+    The graph reads the loop's inputs and state from buffers of its own,
+    which ``load`` refills for each batch, and a device step counter that
+    it advances itself; each step's mel, gate and weights land in
+    SYNC_EVERY-step staging buffers, copied out after each replay.  The
+    prenet masks come from a generator of its own, registered with the
+    graph: ``load`` sets it to the caller's generator's state and
+    ``_decode_graphed`` hands its state back, so every mask is the draw
+    the eager loop makes, in its order.  A replay adds the K1 launches of its
+    steps to ``ops.quant.launches``; the capture adds none."""
+
+    def __init__(self, cfg, thresh, li, st, bufs):
+        like = lambda t: None if t is None else torch.empty_like(t)
+        self.cfg, self.thresh = cfg, thresh
+        self.li, self.st = tree_map(like, li), tree_map(like, st)
+        self.stage = [b.new_empty((SYNC_EVERY, *b.shape[1:])) for b in bufs]
+        dev = st.prev.device
+        self.t = torch.zeros((), dtype=torch.long, device=dev)
+        self.ahead = torch.arange(1, SYNC_EVERY + 1, device=dev)
+        self.gen = (torch.Generator(device=dev)
+                    if cfg.prenet_dropout_always_on else None)
+        self.graph = self.stream = None
+        self.k1 = 0  # K1 launches of one replay
+
+    def load(self, li, st, generator) -> None:
+        for d, s in zip(_tensors(self.li) + _tensors(self.st),
+                        _tensors(li) + _tensors(st)):
+            d.copy_(s)
+        self.t.zero_()
+        if self.gen is not None:
+            self.gen.set_state(generator.get_state())
+
+    def _body(self) -> None:
+        st, ts = self.st, self.t + self.ahead
+        for j in range(SYNC_EVERY):
+            st, *outs = _infer_step(self.cfg, self.thresh, self.gen, self.li,
+                                    st, ts[j])
+            for s, o in zip(self.stage, outs):
+                s[j].copy_(o)
+        for d, s in zip(_tensors(self.st), _tensors(st)):
+            if d.shape != s.shape or d.dtype != s.dtype:
+                raise RuntimeError(f"decode state changed from "
+                                   f"{tuple(d.shape)} {d.dtype} to "
+                                   f"{tuple(s.shape)} {s.dtype} in a step")
+            d.copy_(s)
+        self.t.add_(SYNC_EVERY)
+
+    def warm_up(self) -> None:
+        """The next SYNC_EVERY steps eagerly, on the stream that captures:
+        the run a capture needs before it (handles, workspaces, plans)."""
+        cur = torch.cuda.current_stream(self.t.device)
+        self.stream = torch.cuda.Stream(self.t.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            self._body()
+        cur.wait_stream(self.stream)
+
+    def capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        if self.gen is not None:
+            graph.register_generator_state(self.gen)
+        k1 = Q.launches
+        with torch.cuda.graph(graph, stream=self.stream):
+            self._body()
+        self.k1, Q.launches = Q.launches - k1, k1
+        self.graph = graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+        Q.launches += self.k1
+
+
+def _decode_graphed(cfg, thresh, generator, li, st, bufs, S: int,
+                    tally: Dict[str, int]):
+    """The decode as replays of a ``_DecodeGraph``, one per SYNC_EVERY
+    steps, "all finished" read after each; the steps past the last whole
+    chunk of S run eagerly.  The first chunk of a new shape runs eagerly
+    (the warm-up), and the graph is captured when a second is needed:
+    (steps run, state)."""
+    key = (st.prev.device, cfg, float(thresh), SYNC_EVERY,
+           torch.is_inference_mode_enabled(),
+           tuple((t.shape, t.dtype, t.stride()) for t in _tensors((li, st))))
+    g = _graphs.pop(key, None) or _DecodeGraph(cfg, thresh, li, st, bufs)
+    _graphs[key] = g
+    while len(_graphs) > GRAPH_CACHE:
+        del _graphs[next(iter(_graphs))]
+    g.load(li, st, generator)
+    t, done = 0, False
+    while t + SYNC_EVERY <= S and not done:
+        if g.graph is None and t == 0:
+            g.warm_up()
+            tally["eager_steps"] += SYNC_EVERY
+        else:
+            if g.graph is None:
+                g.capture()
+                tally["graph_captures"] += 1
+            g.replay()
+            tally["graph_replays"] += 1
+        for b, s in zip(bufs, g.stage):
+            b[t:t + SYNC_EVERY].copy_(s)
+        t += SYNC_EVERY
+        done = _all_finished(g.st)
+    st = g.st
+    if not done:
+        t, st = _decode_eager(cfg, thresh, g.gen, g.li, st, bufs, t, S,
+                              tally)
+    if g.gen is not None:
+        generator.set_state(g.gen.get_state())
+    # the graph's buffers are refilled by the next batch
+    return t, st._replace(finished=st.finished.clone())
+
+
 def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
                   memory_b: torch.Tensor, *,
                   generator: Optional[torch.Generator] = None,
@@ -606,10 +800,15 @@ def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
     (False where max steps was hit) and steps_run (decoder steps executed,
     an int), where S = max_steps and r = n_frames_per_step.  With
     ``cfg.prenet_dropout_always_on`` the prenet masks come from
-    ``generator``, which must live on memory's device.  With ``utils.trace``
-    on, records the spans ``decode.prepare``, ``decode.loop`` (its
-    ``decode.sync`` reads inside) and ``decode.finish``, and counts
-    ``decode.steps`` and ``decode.syncs``."""
+    ``generator``, which must live on memory's device.
+
+    On a CUDA device the steps run SYNC_EVERY at a time as replays of one
+    CUDA graph (``_DecodeGraph``), bit-equal to the eager loop, which runs
+    everywhere else.  With ``utils.trace`` on, records the spans
+    ``decode.prepare``, ``decode.loop`` (its ``decode.sync`` reads inside)
+    and ``decode.finish``, and counts ``decode.steps``, ``decode.syncs``,
+    ``decode.graph_captures``, ``decode.graph_replays`` and
+    ``decode.eager_steps`` (replays x SYNC_EVERY + eager steps = steps)."""
     S = int(max_steps or cfg.max_decoder_steps)
     thresh = cfg.gate_threshold if gate_threshold is None else gate_threshold
     B, dev = memory.shape[0], memory.device
@@ -636,50 +835,38 @@ def decoder_infer(dp, cfg: TacotronConfig, memory: torch.Tensor,
             sub_lengths = torch.full((B,), T_sub, device=dev)
         mask_s = torch.stack([sequence_mask(text_lengths.to(dev), T),
                               sequence_mask(sub_lengths.to(dev), T)])
-
-        carry = _decoder_carry_init(cfg, B, T, dtype, dev)
+        # what the steps read
+        li = {"dp": {k: dp[k] for k in ("prenet", "prenet_bert",
+                                        "linear_projection", "gate_layer")},
+              "rnn_s": rnn_s, "att_s": att_s, "dec_rnn": dec_rnn,
+              "memory_s": memory_s, "proc_mem_s": proc_mem_s,
+              "mask_s": mask_s}
+        st = _LoopState(
+            _decoder_carry_init(cfg, B, T, dtype, dev),
+            torch.zeros((B, M * r), dtype=dtype, device=dev),
+            torch.zeros(B, dtype=torch.long, device=dev),
+            torch.zeros(B, dtype=torch.bool, device=dev))
         mel_buf = torch.zeros((S, B, M * r), dtype=dtype, device=dev)
         gate_buf = torch.full((S, B), GATE_PAD_VALUE, dtype=dtype, device=dev)
         align_buf = torch.zeros((S, 2, B, T), dtype=dtype, device=dev)
-        finished = torch.zeros(B, dtype=torch.bool, device=dev)
-        lengths = torch.zeros(B, dtype=torch.long, device=dev)
-        prev = torch.zeros((B, M * r), dtype=dtype, device=dev)
+        bufs = (mel_buf, gate_buf, align_buf)
 
-    steps_run = 0
+    tally = {"graph_captures": 0, "graph_replays": 0, "eager_steps": 0}
     with trace.span("decode.loop"):
-        for t in range(S):
-            if cfg.prenet_dropout_always_on:
-                m = _prenet_masks(generator, 4, (B, cfg.prenet_dim), dtype,
-                                  dev)
-                masks, masks_b = (m[0], m[1]), (m[2], m[3])
-            else:
-                masks = masks_b = None
-            pre_ts = torch.stack([
-                prenet_apply(dp["prenet"], prev, masks),
-                prenet_apply(dp["prenet_bert"], prev, masks_b)])
-            carry, hidden_ctx, w_s, _ = _decode_step(
-                rnn_s, att_s, dec_rnn, cfg, carry, pre_ts, memory_s,
-                proc_mem_s, mask_s)
-            mel_t = L.linear_apply(dp["linear_projection"], hidden_ctx)
-            gate_t = L.linear_apply(dp["gate_layer"], hidden_ctx)[..., 0]
-            mel_buf[t] = mel_t
-            gate_buf[t] = gate_t
-            align_buf[t] = w_s
-            fired = torch.sigmoid(gate_t) > thresh
-            # the stop frame is included
-            lengths = lengths.masked_fill(fired & ~finished, t + 1)
-            finished = finished | fired
-            prev = mel_t
-            steps_run = t + 1
-            if steps_run % SYNC_EVERY == 0:
-                with trace.span("decode.sync"):
-                    done = bool(finished.all())
-                if done:
-                    break
+        if _graphable(dev) and S >= SYNC_EVERY:
+            with torch.no_grad():
+                steps_run, st = _decode_graphed(cfg, thresh, generator, li,
+                                                st, bufs, S, tally)
+        else:
+            steps_run, st = _decode_eager(cfg, thresh, generator, li, st,
+                                          bufs, 0, S, tally)
     trace.count("decode.steps", steps_run)
     trace.count("decode.syncs", steps_run // SYNC_EVERY)
+    for k, v in tally.items():
+        trace.count(f"decode.{k}", v)
 
     with trace.span("decode.finish"):
+        finished, lengths = st.finished, st.lengths
         # samples that never fired ran to max steps (infer_ok False)
         step_lengths = torch.where(finished, lengths,
                                    torch.full_like(lengths, steps_run))

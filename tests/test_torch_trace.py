@@ -167,6 +167,9 @@ def test_synthesize_records_spans_and_counts(monkeypatch, r):
     pad = -(-max(n) // TI.BUCKET) * TI.BUCKET
     assert rec.counters == {
         "decode.steps": steps, "decode.syncs": steps // SYNC,
+        # the CPU decode is the eager loop: no CUDA graph
+        "decode.graph_captures": 0, "decode.graph_replays": 0,
+        "decode.eager_steps": steps,
         "serve.batches": 1, "serve.sentences": B,
         "decode.row_steps": B * steps,
         "decode.live_row_steps": sum(v // r for v in lengths),
