@@ -77,31 +77,13 @@ def postnet_frame_flops(t: dict) -> float:
     return 2.0 * sum(conv_macs(a, b, k, 1) for a, b in zip(chans, chans[1:]))
 
 
-def hifigan_frame_flops(h: dict) -> float:
-    """The generator's work per mel frame: conv_pre, the transposed convs
-    (each input position times C_in x C_out x k), the resblocks (each conv
-    C x C x k per output position) and conv_post."""
-    ch = h["upsample_initial_channel"]
-    macs = conv_macs(h["num_mels"], ch, 7, 1)
-    pos = 1
-    for i, (u, k) in enumerate(zip(h["upsample_rates"],
-                                   h["upsample_kernel_sizes"])):
-        c_in, c_out = ch // 2 ** i, ch // 2 ** (i + 1)
-        macs += c_in * c_out * k * pos
-        pos *= u
-        n_convs = 2 if h["resblock"] == "1" else 1
-        for kern, dil in zip(h["resblock_kernel_sizes"],
-                             h["resblock_dilation_sizes"]):
-            macs += n_convs * len(dil) * conv_macs(c_out, c_out, kern, pos)
-    macs += conv_macs(ch // 2 ** len(h["upsample_rates"]), 1, 7, pos)
-    return 2.0 * macs
-
-
-def batch_flops(t: dict, h: dict, len_text: Sequence[int],
-                len_sub: Sequence[int], frames: Sequence[int]) -> float:
+def batch_flops(t: dict, vocoder_frame_flops: float,
+                len_text: Sequence[int], len_sub: Sequence[int],
+                frames: Sequence[int]) -> float:
     """The model FLOPs of the delivered sentences: the encoders at their
-    lengths, then per frame the decode step, the postnet and the vocoder."""
-    per_frame = postnet_frame_flops(t) + hifigan_frame_flops(h)
+    lengths, then per frame the decode step, the postnet and the vocoder
+    (``vocoder_frame_flops``, its part's ``frame_flops``)."""
+    per_frame = postnet_frame_flops(t) + vocoder_frame_flops
     return float(sum(
         encoder_flops(t, a) + encoder_flops(t, b)
         + int(n) * (decode_step_flops(t, a, b) + per_frame)

@@ -14,6 +14,19 @@ Each served output is compared with the reference's prediction from the
 same served inputs, as a served model's tokens are judged by the
 reference's logits over the same prompt and tokens.
 
+The vocoder is the reference module's ``vocode(G, cfg, mel, rows, batch,
+frames, prec, generator)``: the gen tree, the configuration, the kept
+rows' bucketed mels [k, n_mels, frames], their indices in the batch of
+``batch`` sentences, the padded frame count, the precision, and a
+callable that returns the serving generator as it stood after the
+decode's last prenet mask draw (the decode draws one mask [4, batch,
+prenet_dim] a step it ran).  It returns the waveforms [k, frames * hop]
+before scaling.  A vocoder that draws random numbers (latents, noise)
+draws them from the serving generator, right after the decode's last
+mask draw; its reference states the shapes and order of those draws and
+makes them from the generator the callable returns.  A vocoder that
+draws none never calls it, and the check draws nothing more.
+
 Numbers (each against its limit in the cell's file):
   mel_gap      widest gap of a decoder mel frame: |served - reference| (L2
                over the mel channels) over the sentence's RMS frame norm
@@ -81,7 +94,7 @@ def outputs(ref, cfg: dict, tree: dict, requests, kept: Kept, prec,
     """The reference's predictions, at precision ``prec``, for the kept
     rows: "mel" [k, n_mels, steps], "gate" [k, steps], "mel_postnet"
     [k, n_mels, S], "wav" (list of host arrays)."""
-    t, h = cfg["tacotron"], cfg["hifigan"]
+    t = cfg["tacotron"]
     P, bn, G = tree["params"], tree["bn"], tree["gen"]
     rows = kept.rows
     sel = [requests[i] for i in rows]
@@ -106,11 +119,22 @@ def outputs(ref, cfg: dict, tree: dict, requests, kept: Kept, prec,
         g.set_state(kept.gen_state)
         idx = torch.as_tensor(rows, device=device)
         scale = 1.0 / (1.0 - PRENET_DROPOUT)
+        drawn = 0
+
+        def draw():
+            nonlocal drawn
+            drawn += 1
+            return torch.rand((4, B, t["prenet_dim"]), generator=g,
+                              device=device)
 
         def masks(_step):
-            keep = torch.rand((4, B, t["prenet_dim"]), generator=g,
-                              device=device) < 1.0 - PRENET_DROPOUT
+            keep = draw() < 1.0 - PRENET_DROPOUT
             return keep[:, idx].float() * scale
+
+        def after_decode():
+            while drawn < kept.steps_run:
+                draw()
+            return g
 
         n = kept.n[rows]
         mel, gate = ref.decode_teacher_forced(
@@ -122,12 +146,10 @@ def outputs(ref, cfg: dict, tree: dict, requests, kept: Kept, prec,
         pad_to = -(-int(nv.max()) // BUCKET) * BUCKET
         x = ref.bucket(kept.mel_postnet, nv[rows], pad_to, MEL_FLOOR)
         hop = t["hop_length"]
-        wavs = []
-        for i0 in range(0, len(rows), 8):
-            w = ref.hifigan(G, h, x[i0:i0 + 8], prec)
-            w = torch.clamp(w * MAX_WAV_VALUE, -32768.0, 32767.0)
-            for j in range(w.shape[0]):
-                wavs.append(w[j, :nv[rows[i0 + j]] * hop].cpu().numpy())
+        w = ref.vocode(G, cfg, x, rows, B, pad_to, prec, after_decode)
+        w = torch.clamp(w * MAX_WAV_VALUE, -32768.0, 32767.0)
+        wavs = [w[j, :nv[r] * hop].cpu().numpy()
+                for j, r in enumerate(rows)]
     return {"mel": mel, "gate": gate, "mel_postnet": mel_postnet,
             "wav": wavs}
 

@@ -1,15 +1,24 @@
 """Where the benchmark finds each of its parts, by the name that
-``BENCHMARK.json`` gives it.  Adding a cell, a configuration, a traffic mix
-or a per-layer metric is adding a file; no file here changes for it.
+``BENCHMARK.json`` gives it.  Adding a cell, a traffic mix or a per-layer
+metric is adding a file; so is adding a configuration, with its vocoder
+part, system adapter and reference where they are new: no file here
+changes for it.  A new attention is the exception: its weights are drawn
+by ``weights.tacotron_specs``, which knows SMA and LSA alone.
 
     workloads/<cell>.json     config, traffic, chips, why, limits
     configs/<config>.json     the model's sizes, precision, source, the
-                              system adapter and the reference that run it
+                              system adapter and the reference that run it,
+                              and ``vocoder``: the name of its vocoder part,
+                              whose sizes it keeps under the same key
     traffic/<mix>.json        a traffic mix: its generator's name and
                               parameters
     traffic/<generator>.py    a traffic generator (``make(params, seed, cfg)``)
+    vocoders/<name>.py        a vocoder part: ``specs(group)``, its weights'
+                              leaves ("gen.*", as ``weights.Spec``), and
+                              ``frame_flops(group)``, its work a mel frame
     system/<name>.py          the adapter that drives the program
-    reference/<name>.py       the plain reference of a configuration
+    reference/<name>.py       the plain reference of a configuration, with
+                              ``vocode`` (see ``judge``)
     metrics/<metric>.py       one per-layer metric: its declaration and
                               ``read(obs)``
 
@@ -63,6 +72,10 @@ def traffic(name: str, root: Path = ROOT) -> dict:
 
 def generator(name: str, root: Path = ROOT) -> ModuleType:
     return module_from(root / "traffic" / f"{name}.py")
+
+
+def vocoder(name: str, root: Path = ROOT) -> ModuleType:
+    return module_from(root / "vocoders" / f"{name}.py")
 
 
 def system(name: str, root: Path = ROOT) -> ModuleType:

@@ -297,6 +297,21 @@ def hifigan(G, h: dict, mel, prec: Precision):
     return torch.tanh(conv(G["conv_post"], F.leaky_relu(x, 0.01)))[:, 0]
 
 
+VOCODE_ROWS = 8   # rows a generator call, so that it fits beside the rest
+
+
+def vocode(G, cfg: dict, mel, rows, batch: int, frames: int,
+           prec: Precision, generator):
+    """The check's vocoder stage (``judge``): mel [k, n_mels, frames] of
+    the kept rows -> waveforms [k, frames * prod(upsample_rates)], the
+    generator run over groups of VOCODE_ROWS rows.  HiFi-GAN draws no
+    random numbers: ``generator`` is never called, and ``rows`` and
+    ``batch`` are not read."""
+    h = cfg["hifigan"]
+    return torch.cat([hifigan(G, h, mel[i:i + VOCODE_ROWS], prec)
+                      for i in range(0, mel.shape[0], VOCODE_ROWS)])
+
+
 def bucket(mel_postnet, n_frames, pad_to: int, floor: float):
     """The vocoder's input: each row's first ``n_frames`` frames of
     ``mel_postnet`` [k, n_mels, >= n], then ``floor`` up to ``pad_to``."""

@@ -54,11 +54,19 @@ def forbidden_modules() -> List[str]:
     return sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
 
 
-def make_tree(cell: dict, traffic, seed: int, device) -> dict:
+def tree_specs(cfg: dict, root: Path = layout.ROOT) -> List[W.Spec]:
+    """Every leaf of a configuration: the Tacotron 2's, then its vocoder
+    part's."""
+    name = cfg["vocoder"]
+    return (W.tacotron_specs(cfg["tacotron"])
+            + layout.vocoder(name, root).specs(cfg[name]))
+
+
+def make_tree(cell: dict, traffic, seed: int, device,
+              root: Path = layout.ROOT) -> dict:
     """The configuration's weights from the seed, rigged by the traffic
     generator: {"params", "bn", "gen"}."""
-    cfg = cell["config"]
-    specs = W.tacotron_specs(cfg["tacotron"]) + W.hifigan_specs(cfg["hifigan"])
+    specs = tree_specs(cell["config"], root)
     flat = W.make(specs, (2 * seed) % 2 ** 63, device)
     tree = {k: W.nest(flat, k) for k in ("params", "bn", "gen")}
     traffic.rig(tree["params"], cell["mix"])
@@ -68,8 +76,10 @@ def make_tree(cell: dict, traffic, seed: int, device) -> dict:
 class Window:
     """The batches of one run, and what the check and the metrics read."""
 
-    def __init__(self, cell, traffic, sut, batches, gen, seed, check: int):
+    def __init__(self, cell, traffic, sut, batches, gen, seed, check: int,
+                 vocoder):
         self.cell, self.traffic, self.sut = cell, traffic, sut
+        self.vocoder = vocoder               # the configuration's part
         self.batches, self.gen, self.seed = batches, gen, seed
         self.check = check                   # the batch the check reads
         self.mix = cell["mix"]
@@ -140,10 +150,11 @@ class Window:
 
     def flops(self) -> float:
         cfg = self.cell["config"]
+        voc = self.vocoder.frame_flops(cfg[cfg["vocoder"]])
         total = 0.0
         for k, n in enumerate(self.n):
             reqs = self.batches[k % len(self.batches)]
-            total += flops.batch_flops(cfg["tacotron"], cfg["hifigan"],
+            total += flops.batch_flops(cfg["tacotron"], voc,
                                        [len(r[0]) for r in reqs],
                                        [len(r[1]) for r in reqs], n)
         return total
@@ -210,14 +221,15 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device="cuda",
     traffic = layout.generator(mix["generator"], root)
     sysmod = layout.system(cfg["system"], root)
     refmod = layout.reference(cfg["reference"], root)
+    vocoder = layout.vocoder(cfg["vocoder"], root)
     sync = S.sync_of(device)
-    tree = make_tree(cell, traffic, seed, device)
+    tree = make_tree(cell, traffic, seed, device, root)
     sut = sysmod.System(cfg, mix, tree, device)
     batches = traffic.make(mix, seed, cfg["tacotron"])
     gen = torch.Generator(device=device)
     gen.manual_seed((2 * seed + 1) % 2 ** 63)
     win = Window(cell, traffic, sut, batches, gen, seed,
-                 traffic.check_batch(mix, seed))
+                 traffic.check_batch(mix, seed), vocoder)
     win.warm_up()                            # the cell's shapes
     sync()
     setup_s = time.perf_counter() - T_START
@@ -270,7 +282,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device="cuda",
     del sut, tree, win
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref_tree = make_tree(cell, traffic, seed, device)
+    ref_tree = make_tree(cell, traffic, seed, device, root)
     prec = refmod.Precision(cfg["precision"], t["compute_dtype"], plain=True)
     ref_out = judge.outputs(refmod, cfg, ref_tree, reqs, kept, prec, device)
     checks = judge.gaps(judge.served(kept), ref_out, kept.n[kept.rows], hop)

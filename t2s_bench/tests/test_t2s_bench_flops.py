@@ -6,6 +6,8 @@ import pytest
 
 from t2s_bench import flops, layout
 
+HIFIGAN = layout.vocoder("hifigan")
+
 T = dict(n_mel_channels=2, n_frames_per_step=1, prenet_dim=3,
          encoder_embedding_dim=4, attention_rnn_dim=5, decoder_rnn_dim=6,
          attention_dim=2, attention="StepwiseMonotonicAttention",
@@ -39,9 +41,9 @@ def test_hifigan_by_hand():
              resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1]])
     # conv_pre 56, convT 32 + 16, resblocks 2*(2*2*3)*2 + 2*(1*1*3)*4,
     # conv_post 1*1*7*4
-    assert flops.hifigan_frame_flops(h) == 2 * (56 + 32 + 48 + 16 + 24 + 28)
+    assert HIFIGAN.frame_flops(h) == 2 * (56 + 32 + 48 + 16 + 24 + 28)
     v1 = layout.config("t2s-sma-int8-hifigan-v1")["hifigan"]
-    assert flops.hifigan_frame_flops(v1) == 2 * 307_052_544   # ~614 MFLOP
+    assert HIFIGAN.frame_flops(v1) == 2 * 307_052_544   # ~614 MFLOP
 
 
 @pytest.mark.parametrize("shape, bound_ms", [
@@ -61,8 +63,23 @@ def test_k1_step_bound():
 
 
 def test_batch_flops_is_the_sum_of_its_layers():
-    h = layout.config("t2s-sma-int8-hifigan-v1")["hifigan"]
+    voc = HIFIGAN.frame_flops(
+        layout.config("t2s-sma-int8-hifigan-v1")["hifigan"])
     one = (flops.encoder_flops(T, 5) + flops.encoder_flops(T, 3)
            + 7 * (flops.decode_step_flops(T, 5, 3) + flops.postnet_frame_flops(T)
-                  + flops.hifigan_frame_flops(h)))
-    assert flops.batch_flops(T, h, [5, 5], [3, 3], [7, 7]) == 2 * one
+                  + voc))
+    assert flops.batch_flops(T, voc, [5, 5], [3, 3], [7, 7]) == 2 * one
+
+
+@pytest.mark.parametrize("name, voc, batch", [
+    ("t2s-sma-int8-hifigan-v1", 614_105_088.0, 511_759_578_112.0),
+    ("t2s-lsa-bf16-hifigan-v2", 38_510_592.0, 85_594_616_320.0)])
+def test_full_configs_flops_are_unchanged(name, voc, batch):
+    """Each full configuration's vocoder FLOPs a frame, from its part, and
+    a batch's FLOPs: the values of the formula before the vocoder became a
+    part of its own."""
+    cfg = layout.config(name)
+    part = layout.vocoder(cfg["vocoder"])
+    assert part.frame_flops(cfg[cfg["vocoder"]]) == voc
+    assert flops.batch_flops(cfg["tacotron"], voc, [100, 37], [17, 5],
+                             [600, 142]) == batch

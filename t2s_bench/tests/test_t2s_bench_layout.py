@@ -1,15 +1,22 @@
 """The harness finds each part by its name in BENCHMARK.json, and a cell, a
-configuration and a per-layer metric are added as files alone."""
+configuration (with its own vocoder, system adapter and reference) and a
+per-layer metric are added as files alone."""
 
 from __future__ import annotations
 
+import hashlib
 import json
+import math
 import re
 from pathlib import Path
 
-from t2s_bench import layout
+import pytest
+
+from t2s_bench import layout, run as R
 
 REPO = Path(__file__).resolve().parents[2]
+BENCH = REPO / "t2s_bench"
+SEED = 2 ** 31 + 4242
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
@@ -84,3 +91,199 @@ def test_benchmark_json_matches_its_files():
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
     assert len((REPO / "BENCHMARK.json").read_bytes()) < 64 * 1024
+
+
+@pytest.mark.parametrize("name, leaves, numel, digest", [
+    ("t2s-sma-int8-hifigan-v1", 270, 65_813_346,
+     "534f1355ed3ca98f28a638b7b7029138edf963150185df7598903b22b3dfbcbc"),
+    ("t2s-lsa-bf16-hifigan-v2", 274, 52_825_474,
+     "162d02119ce3b15b0730271071961f57a01565ee5333051a1425676d15bcab84")])
+def test_full_configs_draw_the_same_leaves(name, leaves, numel, digest):
+    """The leaves ``make_tree`` draws (names, shapes, bounds, in order) are
+    those of the Tacotron 2 followed by the HiFi-GAN generator as they were
+    drawn before the vocoder became a part, so one seed makes the same
+    tree: the digest is of that list's ``repr``."""
+    specs = R.tree_specs(layout.config(name))
+    assert len(specs) == leaves
+    assert sum(math.prod(shape) for _, shape, _, _ in specs) == numel
+    assert hashlib.sha256(repr(specs).encode()).hexdigest() == digest
+    assert [n for n, *_ in specs if n.startswith("gen.")] == [
+        n for n, *_ in layout.vocoder("hifigan").specs(
+            layout.config(name)["hifigan"])]
+
+
+@pytest.mark.parametrize("file", ["run.py", "judge.py", "flops.py",
+                                  "weights.py"])
+def test_the_harness_names_no_vocoder(file):
+    """The vocoder is the configuration's part: the files every
+    configuration runs through name none."""
+    text = (BENCH / file).read_text().lower()
+    assert "hifigan" not in text and "hifi-gan" not in text
+
+
+TOY_PART = '''"""A toy stochastic vocoder: each mel frame's ``hop`` samples are tanh
+of a linear map of the frame, plus ``sigma`` N(0, 1) noise."""
+
+import math
+
+
+def specs(v):
+    b = 1.0 / math.sqrt(v["num_mels"])
+    return [("gen.proj.w", (v["num_mels"], v["hop"]), -b, b),
+            ("gen.proj.b", (v["hop"],), -b, b)]
+
+
+def frame_flops(v):
+    return 2.0 * v["num_mels"] * v["hop"]
+'''
+
+TOY_SYSTEM = '''"""The program's decode, then the toy vocoder through the program's
+bucketing, its noise drawn from the serving generator after the decode."""
+
+import importlib
+
+import torch
+
+SPANS = ()
+KERNELS = {}
+FAULT = %r
+
+
+def module(name):
+    return importlib.import_module(name)
+
+
+def counters():
+    return {}
+
+
+class System:
+    def __init__(self, config, mix, tree, device):
+        from tacotron2_subword_tpu_torch.config import TacotronConfig
+        known = TacotronConfig.__dataclass_fields__
+        self.cfg = TacotronConfig().replace(**{
+            k: v for k, v in config["tacotron"].items() if k in known})
+        self.v, self.mix, self.device = (config["toy_noise"], mix,
+                                         torch.device(device))
+        self.params, self.bn, self.gen = (tree["params"], tree["bn"],
+                                          tree["gen"])
+
+    @torch.inference_mode()
+    def serve(self, requests, generator):
+        from tacotron2_subword_tpu_torch.apps import inference as I
+        from tacotron2_subword_tpu_torch.models import tacotron2 as M
+        before = generator.get_state()
+        text, sub, cls_p, cls_s, t_len, s_len = I.pad_requests(
+            requests, self.device)
+        out = M.infer(self.params, self.bn, self.cfg, text, sub, cls_p,
+                      cls_s, generator=generator,
+                      max_steps=self.mix["max_steps"],
+                      gate_threshold=self.mix["gate_threshold"],
+                      text_lengths=t_len, sub_lengths=s_len)
+        g = generator
+        if FAULT == "fresh":
+            g = torch.Generator(device=self.device).manual_seed(0)
+        elif FAULT == "early":      # one mask draw short of the decode's
+            g = torch.Generator(device=self.device)
+            g.set_state(before)
+            for _ in range(out["steps_run"] - 1):
+                torch.rand((4, len(requests), self.cfg.prenet_dim),
+                           generator=g, device=self.device)
+        p, v = self.gen["proj"], self.v
+
+        def vocode(m):
+            w = torch.tanh(torch.einsum("bmf,mh->bfh", m, p["w"]) + p["b"])
+            w = w.reshape(m.shape[0], -1)
+            return w + v["sigma"] * torch.randn(w.shape, generator=g,
+                                                device=w.device)
+        wavs = I.vocode_bucketed(vocode, out["mel_postnet"],
+                                 out["mel_lengths"].tolist(),
+                                 hop=self.cfg.hop_length)
+        out["wavs"] = [torch.clamp(w * I.MAX_WAV_VALUE, -32768.0, 32767.0)
+                       for w in wavs]
+        return out
+'''
+
+TOY_REFERENCE = '''"""The plain reference of the toy configuration: the acoustic model of
+``tacotron2_hifigan.py``, and the toy vocoder, whose one draw is
+N(0, 1) [batch, frames * hop] from the serving generator after the decode,
+of which the kept rows read theirs."""
+
+from pathlib import Path
+
+import torch
+
+from t2s_bench import layout
+
+_base = layout.module_from(Path(__file__).with_name("tacotron2_hifigan.py"))
+Precision, encode, bucket = _base.Precision, _base.encode, _base.bucket
+decode_teacher_forced, postnet = _base.decode_teacher_forced, _base.postnet
+
+
+def vocode(G, cfg, mel, rows, batch, frames, prec, generator):
+    v, p = cfg["toy_noise"], G["proj"]
+    w = torch.tanh(torch.einsum("kmf,mh->kfh", mel, p["w"]) + p["b"])
+    noise = torch.randn((batch, frames * v["hop"]), generator=generator(),
+                        device=mel.device)
+    idx = torch.as_tensor(rows, device=mel.device)
+    return w.reshape(mel.shape[0], -1) + v["sigma"] * noise[idx]
+'''
+
+
+def _snapshot(root: Path) -> dict:
+    return {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
+
+
+def _add_toy(root: Path, fault) -> None:
+    """A configuration "tiny-toy" whose vocoder is the toy, and its cell,
+    written as new files only."""
+    before = _snapshot(root)
+    (root / "vocoders" / "toy_noise.py").write_text(TOY_PART)
+    (root / "system" / "toy_noise.py").write_text(TOY_SYSTEM % fault)
+    (root / "reference" / "toy_noise.py").write_text(TOY_REFERENCE)
+    cfg = json.loads((root / "configs" / "tiny.json").read_text())
+    del cfg["hifigan"]
+    cfg.update(name="tiny-toy", system="toy_noise", reference="toy_noise",
+               vocoder="toy_noise", toy_noise=dict(
+                   num_mels=cfg["tacotron"]["n_mel_channels"],
+                   hop=cfg["tacotron"]["hop_length"], sigma=0.1))
+    (root / "configs" / "tiny-toy.json").write_text(json.dumps(cfg))
+    wl = json.loads((root / "workloads" / "tiny.json").read_text())
+    (root / "workloads" / "tiny-toy.json").write_text(
+        json.dumps(dict(wl, config="tiny-toy")))
+    after = _snapshot(root)
+    assert all(after[p] == b for p, b in before.items())
+    assert len(after) == len(before) + 5
+
+
+@pytest.mark.parametrize("fault", [None, "fresh", "early"])
+def test_a_stochastic_vocoder_joins_as_files(bench_copy, fault):
+    """A configuration with a vocoder that draws noise, added as new files
+    alone, runs through the harness on the CPU: correct where the noise
+    follows the decode's last mask draw on the serving generator, and
+    caught by ``wav_gap`` alone where it comes from a fresh generator or
+    from one mask draw early."""
+    _add_toy(bench_copy, fault)
+    res = R.run(layout.cell("tiny-toy", bench_copy), SEED, 0.0, False,
+                device="cpu", root=bench_copy)
+    checks = res["checks"]
+    if fault is None:
+        assert res["correct"], checks
+    else:
+        assert not res["correct"]
+        assert [k for k, c in checks.items()
+                if not c["value"] <= c["limit"]] == ["wav_gap"], checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [None, "early"])
+def test_a_stochastic_vocoder_on_card(bench_copy, fault):
+    """As above on the card, where the decode runs as CUDA graph replays
+    that hand the serving generator back past their mask draws."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _add_toy(bench_copy, fault)
+    res = R.run(layout.cell("tiny-toy", bench_copy), SEED, 0.5, False,
+                root=bench_copy)
+    assert res["correct"] is (fault is None), res["checks"]

@@ -11,9 +11,8 @@ LSTM ``w_ih`` [4H, in], ``w_hh`` [4H, H] with gates (i, f, g, o).
 Bounds: the Tacotron 2 reference's initialisers (Xavier-uniform with its
 gains, torch's LSTM and linear defaults); BatchNorm's running statistics
 and affine terms drawn near their initial values so that the
-normalisation's arithmetic is exercised; HiFi-GAN's fused convolutions at
-torch's default U(+-1/sqrt(fan_in)) (a trained generator's weight norm is
-folded into them for serving).
+normalisation's arithmetic is exercised.  The vocoder's leaves ("gen.*")
+and their bounds are its part's (``vocoders/<name>.py``).
 """
 
 from __future__ import annotations
@@ -118,39 +117,6 @@ def tacotron_specs(t: dict) -> List[Spec]:
         _conv(s, f"params.postnet.{i}.conv", c_in, c_out,
               t["postnet_kernel_size"], "linear" if i == n - 1 else "tanh")
         _bn(s, f"params.postnet.{i}.bn", f"bn.postnet.{i}", c_out)
-    return s
-
-
-def hifigan_specs(h: dict) -> List[Spec]:
-    """Leaves "gen.*" of the fused HiFi-GAN generator whose sizes ``h``
-    holds (the config file's "hifigan" group)."""
-    s: List[Spec] = []
-
-    def conv(name, c_in, c_out, k, fan_in):
-        b = _sym(1.0 / math.sqrt(fan_in))
-        s.extend([(f"{name}.w", (c_out, c_in, k), *b),
-                  (f"{name}.b", (c_out,), *b)])
-
-    ch = h["upsample_initial_channel"]
-    conv("gen.conv_pre", h["num_mels"], ch, 7, h["num_mels"] * 7)
-    j = 0
-    for i, (u, k) in enumerate(zip(h["upsample_rates"],
-                                   h["upsample_kernel_sizes"])):
-        c_in, c_out = ch // 2 ** i, ch // 2 ** (i + 1)
-        b = _sym(1.0 / math.sqrt(c_out * k))   # torch: fan_in = out * k
-        s.extend([(f"gen.ups.{i}.w", (c_in, c_out, k), *b),
-                  (f"gen.ups.{i}.b", (c_out,), *b)])
-        for kern, dil in zip(h["resblock_kernel_sizes"],
-                             h["resblock_dilation_sizes"]):
-            names = ("convs1", "convs2") if h["resblock"] == "1" \
-                else ("convs",)
-            for nm in names:
-                for d in range(len(dil)):
-                    conv(f"gen.resblocks.{j}.{nm}.{d}", c_out, c_out, kern,
-                         c_out * kern)
-            j += 1
-    conv("gen.conv_post", ch // 2 ** len(h["upsample_rates"]), 1, 7,
-         ch // 2 ** len(h["upsample_rates"]) * 7)
     return s
 
 
