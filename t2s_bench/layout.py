@@ -17,6 +17,11 @@ by ``weights.tacotron_specs``, which knows SMA and LSA alone.
                               leaves ("gen.*", as ``weights.Spec``), and
                               ``frame_flops(group)``, its work a mel frame
     system/<name>.py          the adapter that drives the program
+    system/<name>_trace.py    the program's own spans and counters, where
+                              the adapter has them: ``enable``,
+                              ``disable`` and ``take``, which the traced
+                              run turns on over its window and profiled
+                              batch
     reference/<name>.py       the plain reference of a configuration, with
                               ``vocode`` (see ``judge``)
     metrics/<metric>.py       one per-layer metric: its declaration and
@@ -25,6 +30,17 @@ by ``weights.tacotron_specs``, which knows SMA and LSA alone.
 The cells that report a per-layer metric are listed once, in the
 metric's entry in ``BENCHMARK.json`` (the folder's parent), so a new cell
 joins a metric by that entry, not by an edit of the metric's reader.
+
+A reader's ``obs`` (``run.run``, traced run) holds the cell's whole
+``config`` (and its ``tacotron`` group), the window's ``window_s``,
+``audio_s``, ``steps``, ``batches`` ((mel lengths, steps run) a batch),
+``flops``, ``peak_bytes``, the outside ``spans``' seconds by label; the
+profiled batch's ``trace`` (None without a card: ``segments``, ``steps``,
+``wall_s``, ``busy_s``, ``batch`` and ``frames``, its mel lengths); and
+``program``, the program's own record (None where the system adapter has
+no ``_trace`` file): ``window`` and ``profiled``, each (spans, counters),
+the profiled batch's ``attribution`` (``attribution.attribute``), its host
+CUDA ``calls`` and ``wall_s``, as ``attribution.METRICS`` reads them.
 """
 
 from __future__ import annotations
@@ -33,7 +49,7 @@ import importlib.util
 import json
 from pathlib import Path
 from types import ModuleType
-from typing import Dict
+from typing import Dict, Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -80,6 +96,13 @@ def vocoder(name: str, root: Path = ROOT) -> ModuleType:
 
 def system(name: str, root: Path = ROOT) -> ModuleType:
     return module_from(root / "system" / f"{name}.py")
+
+
+def system_trace(name: str, root: Path = ROOT) -> Optional[ModuleType]:
+    """The tracing file of system adapter ``name``, or None where it has
+    none."""
+    path = root / "system" / f"{name}_trace.py"
+    return module_from(path) if path.is_file() else None
 
 
 def reference(name: str, root: Path = ROOT) -> ModuleType:

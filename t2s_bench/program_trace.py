@@ -1,88 +1,42 @@
-"""A run of one cell with the program's own tracing on, and what it reads:
+"""What the program's own tracing shows in a traced run of one cell,
+beyond the benchmark's metrics:
 
     python3 -m t2s_bench.program_trace --workload <cell> --seeds <n> ... \
-        --seconds <s> --trace <0|1>
+        --seconds <s> [--trace <0|1>]
 
-Each seed is one ``t2s_bench.run`` run, unchanged, with the program's
-spans and counters (``system/<adapter>_trace.py``) turned on over its timed
-window and, with ``--trace 1``, over its profiled batch, whose trace is
-kept with its launch records.  One JSON line per seed: ``correct``, the
-window's ``audio_s_per_s`` (with tracing on; with ``--trace 1`` also with
-the outside spans' waits), the run's own metrics, the per-layer metrics of
-``attribution.METRICS``, the window's counters, its seconds in each span
-(``span_s``) and the live shares reckoned from its lengths (``by_hand``),
-and with ``--trace 1`` the attribution's route, the share of device rows
-that had a launch record, the profiled batch's idle by span (host-bound
-and launch latency, s), its longest CUDA runtime and driver calls by span
-(``host_calls``) and its idle gaps (``gaps``).
+Each seed is one ``t2s_bench.run`` run, which with ``--trace 1`` turns the
+program's spans and counters (``system/<adapter>_trace.py``) on over its
+timed window and its profiled batch, whose trace it keeps with its launch
+records (``obs["program"]``); with ``--trace 0`` nothing is traced and the
+line holds the run's end-to-end metrics and ``by_hand`` alone.  One JSON
+line per seed: ``correct``, the window's ``audio_s_per_s`` (with
+``--trace 1``, with the tracing's cost and the outside spans' waits), the
+run's own metrics (those of ``attribution.METRICS`` among them), the
+window's counters, its seconds in each span (``span_s``) and the live
+shares reckoned from its lengths (``by_hand``), and with a profiled batch
+the attribution's route, the share of device rows that had a launch
+record, the batch's idle by span (host-bound and launch latency, s), its
+longest CUDA runtime and driver calls by span (``host_calls``) and its
+idle gaps (``gaps``).
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import math
 import sys
 from pathlib import Path
 
 from t2s_bench import attribution as A, judge, layout, run as R
 
 
-class Capture:
-    """Turns the program's tracing on around a run's window and profiled
-    batch, and keeps their records."""
-
-    def __init__(self, tr, sr: int):
-        self.tr, self.sr = tr, sr
-        self.window = self.profiled = self.records = None
-        self.rate = self.win = None
-
-    @contextlib.contextmanager
-    def installed(self):
-        cap = self
-
-        class Window(R.Window):
-            def run(self, seconds):
-                cap.tr.enable()
-                cap.tr.take()
-                try:
-                    el = super().run(seconds)
-                finally:
-                    cap.window = cap.tr.take()
-                    cap.tr.disable()
-                cap.rate = self.audio_s(cap.sr) / el
-                cap.win = self
-                return el
-
-        real = R.xprof.device_profile
-
-        @contextlib.contextmanager
-        def device_profile():
-            with real() as prof:
-                cap.tr.enable()
-                cap.tr.take()
-                try:
-                    yield prof
-                finally:
-                    cap.profiled = cap.tr.take()
-                    cap.tr.disable()
-            cap.records = A.records(prof)
-
-        saved = R.Window
-        R.Window, R.xprof.device_profile = Window, device_profile
-        try:
-            yield self
-        finally:
-            R.Window, R.xprof.device_profile = saved, real
-
-
-def by_hand(win, r: int) -> dict:
-    """The live shares reckoned from the window's own lengths: decode
-    row-steps up to each stop over B x steps run; vocoder frames max(n, 8)
-    over B x the padded frames."""
+def by_hand(batches, r: int) -> dict:
+    """The live shares reckoned from the window's own lengths (``obs
+    ["batches"]``: (mel lengths, steps run) a batch): decode row-steps up
+    to each stop over B x steps run; vocoder frames max(n, 8) over B x the
+    padded frames."""
     rows = live = frames = live_f = 0
-    for n, steps in zip(win.n, win.steps):
+    for n, steps in batches:
         kept = judge.vocoder_frames(n)
         pad = -(-int(kept.max()) // judge.BUCKET) * judge.BUCKET
         rows += len(n) * steps
@@ -123,38 +77,29 @@ def gaps(a: A.Attribution, parts: int = 10) -> dict:
 
 def run(cell: dict, seed: int, seconds: float, trace: bool,
         device="cuda", root: Path = layout.ROOT) -> dict:
-    cfg = cell["config"]
-    tr = layout.system(cfg["system"] + "_trace", root)
-    cap = Capture(tr, cfg["tacotron"]["sampling_rate"])
-    with cap.installed():
-        res = R.run(cell, seed, seconds, trace, device=device, root=root)
-    attr = None
-    if cap.records is not None and cap.profiled is not None:
-        rows, launches, calls = cap.records
-        attr = A.attribute(rows, launches, cap.profiled[0])
-    obs = {"window": cap.window, "profiled": cap.profiled,
-           "attribution": attr, "wall_s": res["device"].get("window_s")}
-    metrics = dict(res["metrics"])
-    for name, m in A.METRICS.items():
-        v = m.read(obs)
-        if v is not None and math.isfinite(v):
-            metrics[name] = {"value": v, "unit": m.unit}
+    res = R.run(cell, seed, seconds, trace, device=device, root=root)
+    obs = res["obs"]
+    prog = obs["program"] or {}
+    window, attr = prog.get("window"), prog.get("attribution")
     out = {"seed": seed, "correct": res["correct"], "trace": int(trace),
-           "audio_s_per_s": cap.rate, "metrics": metrics,
-           "counters": cap.window[1] if cap.window else None,
-           "span_s": ({n: A.span_ns(cap.window[0], n) / 1e9
-                       for n in sorted({s[0] for s in cap.window[0]})}
-                      if cap.window else None),
-           "by_hand": by_hand(cap.win, cfg["tacotron"]["n_frames_per_step"])}
+           "audio_s_per_s": obs["audio_s"] / obs["window_s"],
+           "metrics": res["metrics"],
+           "counters": window[1] if window else None,
+           "span_s": ({n: A.span_ns(window[0], n) / 1e9
+                       for n in sorted({s[0] for s in window[0]})}
+                      if window else None),
+           "by_hand": by_hand(obs["batches"],
+                              cell["config"]["tacotron"]["n_frames_per_step"])}
     if attr is not None:
         out.update(route=attr.route, launch_matched=attr.matched,
                    idle_by_span={k: [attr.host_bound_s.get(k, 0.0),
                                      attr.latency_s.get(k, 0.0)]
                                  for k in sorted(set(attr.host_bound_s)
                                                  | set(attr.latency_s))},
-                   host_calls=A.host_calls(calls, cap.profiled[0]),
+                   host_calls=A.host_calls(prog["calls"],
+                                           prog["profiled"][0]),
                    gaps=gaps(attr),
-                   wall_s=obs["wall_s"], device=res["device"])
+                   wall_s=prog["wall_s"], device=res["device"])
     return out
 
 

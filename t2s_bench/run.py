@@ -9,9 +9,11 @@ drawn, one warm-up batch served at the cell's own shapes.  Then the window:
 batches back to back through the program's serving entry, each counted
 when its wavs are on the host, until ``--seconds`` have passed; the rate is
 all the audio over all the time of the window.  With ``--trace 1`` the
-window runs with spans around the serving entry's layers, then one more
-batch is profiled.  Then the output check (``judge``): the program's state
-is freed and the plain reference judges one batch of the window.
+window runs with spans around the serving entry's layers and, where the
+configuration's system adapter has a ``_trace`` file, with the program's
+own spans and counters on; then one more batch is profiled, the program's
+tracing on over it too.  Then the output check (``judge``): the program's
+state is freed and the plain reference judges one batch of the window.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted`` and ``failed`` (sentences), ``metrics`` (the cell's
@@ -28,6 +30,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import sys  # noqa: E402
@@ -37,7 +40,8 @@ from typing import List, Optional  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from t2s_bench import flops, judge, layout, spans as S, weights as W  # noqa: E402
+from t2s_bench import (  # noqa: E402
+    attribution as A, flops, judge, layout, spans as S, weights as W)
 from t2s_bench.frozen import xprof  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tacotron2_subword_tpu")
@@ -160,14 +164,38 @@ class Window:
         return total
 
 
-def profile_batch(win: Window, spans: S.Spans, sysmod, sync):
+@contextlib.contextmanager
+def recording(tr):
+    """The program's own spans and counters on over the body, where ``tr``
+    (the system adapter's ``_trace`` file) is given.  Yields a list that
+    holds, after the body, what the program recorded in it: (spans,
+    counters)."""
+    got: list = []
+    if tr is None:
+        yield got
+        return
+    tr.enable()
+    tr.take()
+    try:
+        yield got
+    finally:
+        got.append(tr.take())
+        tr.disable()
+
+
+def profile_batch(win: Window, spans: S.Spans, sysmod, sync, tr=None
+                  ) -> dict:
     """One batch under the device profiler, cut at its span markers:
-    (segments, steps run, host wall s).  Taken again where the trace lost
-    records: a marker, or a K1 launch that the program counted."""
+    ``segments``, ``steps`` run, host ``wall_s``, ``frames`` (the batch's
+    mel lengths) and, with the program's tracing ``tr``, ``profiled`` (its
+    spans and counters) and ``records`` (the trace's device rows, launch
+    records and host calls: ``attribution.records``).  Taken again where
+    the trace lost records: a marker, or a K1 launch that the program
+    counted."""
     for _ in range(TRACE_ATTEMPTS):
         spans.marks = []
         before = sysmod.counters()
-        with xprof.device_profile() as prof:
+        with xprof.device_profile() as prof, recording(tr) as profiled:
             t0 = time.perf_counter()
             spans.marks.append(("synthesize", True))
             xprof.mark()
@@ -188,7 +216,11 @@ def profile_batch(win: Window, spans: S.Spans, sysmod, sync):
                 sum(1 for _, rows in segs for r in rows if name in r[0])
                 == counted.get(kid, 0)
                 for kid, name in sysmod.KERNELS.items()):
-            return segs, int(out["steps_run"]), wall
+            return {"segments": segs, "steps": int(out["steps_run"]),
+                    "wall_s": wall,
+                    "frames": [int(n) for n in out["mel_lengths"].tolist()],
+                    "profiled": profiled[0] if profiled else None,
+                    "records": A.records(prof) if profiled else None}
     raise RuntimeError(f"device trace lost records in {TRACE_ATTEMPTS} "
                        f"attempts")
 
@@ -205,10 +237,11 @@ def breakdown(segs) -> dict:
 
 def run(cell: dict, seed: int, seconds: float, trace: bool, device="cuda",
         root: Path = layout.ROOT, control: bool = False) -> dict:
-    """One run of ``cell`` (``layout.cell``); returns the result's fields
-    and ``checks``.  With ``control``, also ``control``: the gaps of the
-    reference at the configuration's control precision, put in the
-    program's place on the same served inputs (``t2s_bench.control``)."""
+    """One run of ``cell`` (``layout.cell``); returns the result's fields,
+    ``checks`` and ``obs`` (what the per-layer metrics read).  With
+    ``control``, also ``control``: the gaps of the reference at the
+    configuration's control precision, put in the program's place on the
+    same served inputs (``t2s_bench.control``)."""
     device = torch.device(device)
     seed %= 2 ** 63
     if device.type == "cuda" and (
@@ -234,30 +267,34 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device="cuda",
     sync()
     setup_s = time.perf_counter() - T_START
 
-    spans = None
+    spans = tr = None
     if trace:
         spans = S.Spans([(sysmod.module(m), f, label)
                          for m, f, label in sysmod.SPANS], sync)
+        tr = layout.system_trace(cfg["system"], root)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     try:
-        window_s = win.run(seconds)
+        with recording(tr) as window_rec:
+            window_s = win.run(seconds)
         peak = (torch.cuda.max_memory_allocated(device)
                 if device.type == "cuda" else 0)
         span_s = dict(spans.total) if spans is not None else {}
-        segs = None
+        prof = None
         if trace and device.type == "cuda":
-            segs, t_steps, t_wall = profile_batch(win, spans, sysmod, sync)
+            prof = profile_batch(win, spans, sysmod, sync, tr)
     finally:
         if spans is not None:
             spans.close()
     t = cfg["tacotron"]
     hop, sr = t["hop_length"], t["sampling_rate"]
     audio_s = win.audio_s(sr)
-    obs = {"cell": cell["name"], "tacotron": t, "kernels": sysmod.KERNELS,
-           "window_s": window_s, "audio_s": audio_s,
-           "steps": sum(win.steps), "spans": span_s, "flops": win.flops(),
-           "peak_bytes": peak, "trace": None}
+    obs = {"cell": cell["name"], "config": cfg, "tacotron": t,
+           "kernels": sysmod.KERNELS, "window_s": window_s,
+           "audio_s": audio_s, "steps": sum(win.steps),
+           "batches": list(zip(win.n, win.steps)), "spans": span_s,
+           "flops": win.flops(), "peak_bytes": peak, "trace": None,
+           "program": None}
     out: dict = {"attempted": int(sum(len(l) for l in win.lens)),
                  "failed": win.failed(hop)}
     device_info = {
@@ -265,12 +302,28 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device="cuda",
         "kind": (torch.cuda.get_device_name(device)
                  if device.type == "cuda" else "cpu"),
         "count": cell["workload"]["chips"], "memory_peak_bytes": int(peak)}
-    if segs is not None:
-        bd, prof = breakdown(segs)
-        obs["trace"] = {"segments": segs, "steps": t_steps, "wall_s": t_wall,
-                        "busy_s": prof.busy_ms / 1e3, "batch": mix["batch"]}
-        device_info.update(busy_s=prof.busy_ms / 1e3, window_s=t_wall)
+    if prof is not None:
+        bd, summary = breakdown(prof["segments"])
+        obs["trace"] = {"segments": prof["segments"], "steps": prof["steps"],
+                        "wall_s": prof["wall_s"], "frames": prof["frames"],
+                        "busy_s": summary.busy_ms / 1e3,
+                        "batch": mix["batch"]}
+        device_info.update(busy_s=summary.busy_ms / 1e3,
+                           window_s=prof["wall_s"])
         out["breakdown"] = bd
+    if tr is not None:
+        # in the shape ``attribution.METRICS`` reads, with the profiled
+        # batch's host CUDA calls
+        obs["program"] = {"window": window_rec[0], "profiled": None,
+                          "attribution": None, "calls": None,
+                          "wall_s": None}
+        if prof is not None:
+            rows, launches, calls = prof["records"]
+            obs["program"].update(
+                profiled=prof["profiled"], calls=calls,
+                attribution=A.attribute(rows, launches,
+                                        prof["profiled"][0]),
+                wall_s=prof["wall_s"])
 
     # the check: the batch it reads, served after the window where the
     # window was shorter (a run of a second or less); then the program's
@@ -316,6 +369,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device="cuda",
                    "setup_s": {"value": setup_s, "unit": "s"}}
     out["metrics"] = metrics
     out["device"] = device_info
+    out["obs"] = obs
     return out
 
 

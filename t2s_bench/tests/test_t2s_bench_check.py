@@ -84,13 +84,16 @@ def test_prenet_masks_not_redrawn_is_caught(bench_copy, monkeypatch):
 
 def test_a_traced_run_reports_its_cells_metrics(bench_copy):
     """The metrics BENCHMARK.json lists for the cell, where their readers
-    find something: on the CPU, no device trace, so only the spans and
-    the clock."""
+    find something: on the CPU, no device trace, so only the spans, the
+    clock and the program's spans and counters over the window."""
     res = R.run(layout.cell("tiny-lsa", bench_copy), SEED, 0.0, True,
                 device="cpu", root=bench_copy)
     assert set(res["metrics"]) == {"decode_us_per_step.synth",
                                    "vocoder_ms_per_audio_s.synth",
-                                   "mfu.synth"}
+                                   "mfu.synth",
+                                   "decode_host_us_per_step.synth",
+                                   "decode_live_share.synth",
+                                   "vocoder_live_share.synth"}
 
 
 @pytest.mark.cuda

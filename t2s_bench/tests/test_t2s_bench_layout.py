@@ -8,6 +8,7 @@ import hashlib
 import json
 import math
 import re
+import shutil
 from pathlib import Path
 
 import pytest
@@ -55,42 +56,84 @@ def test_added_files_are_found(bench_copy):
                                                           bench_copy)
 
 
-def test_benchmark_json_matches_its_files():
-    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+def _check_manifest(repo: Path) -> None:
+    """``BENCHMARK.json`` in ``repo`` against the files of its benchmark."""
+    bench = json.loads((repo / "BENCHMARK.json").read_text())
+    root = repo / "t2s_bench"
     assert set(bench) == {"command", "paths", "run_seconds", "configs",
                           "workloads", "end_to_end", "per_layer"}
     assert bench["paths"] == ["t2s_bench"]
     configs = {c["name"]: c for c in bench["configs"]}
     for c in bench["configs"]:
-        f = json.loads((REPO / c["file"]).read_text())
+        f = json.loads((repo / c["file"]).read_text())
         assert f["name"] == c["name"] and f["reduced"] == c["reduced"]
         assert c["file"] == f"t2s_bench/configs/{c['name']}.json"
         assert 1 <= len(c["source"]) <= 200 and len(c["why"]) <= 200
     cells = set()
     for w in bench["workloads"]:
-        f = layout.workload(w["name"])
+        f = layout.workload(w["name"], root)
         assert (f["config"], f["traffic"], f["chips"], f["why"]) == (
             w["config"], w["traffic"], w["chips"], w["why"])
         assert w["config"] in configs and len(w["why"]) <= 200
-        layout.traffic(w["traffic"])
+        layout.traffic(w["traffic"], root)
         cells.add(w["name"])
     e2e = {m["name"] for m in bench["end_to_end"]}
     assert "setup_s" in e2e
-    metrics = layout.metrics()
+    metrics = layout.metrics(root)
     assert {m["name"] for m in bench["per_layer"]} == set(metrics)
     for m in bench["per_layer"]:
         mod = metrics[m["name"]]
         assert (mod.LAYER, mod.UNIT, mod.BETTER, mod.SOURCE, mod.MOVES) == (
             m["layer"], m["unit"], m["better"], m["source"], m["moves"])
         assert m["moves"] in e2e and set(m["workloads"]) <= cells
-    assert all(layout.cell_metrics(c) for c in cells)
+    assert all(layout.cell_metrics(c, root) for c in cells)
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")
     for m in bench["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
-    assert len((REPO / "BENCHMARK.json").read_bytes()) < 64 * 1024
+    assert len((repo / "BENCHMARK.json").read_bytes()) < 64 * 1024
+
+
+def test_benchmark_json_matches_its_files():
+    _check_manifest(REPO)
+
+
+def _twin_faults(bench: Path) -> list:
+    """The cells of the ``BENCHMARK.json`` beside ``bench`` whose twin file
+    is missing or does not fit the cell's configuration, with the
+    reason."""
+    manifest = json.loads((bench.parent / "BENCHMARK.json").read_text())
+    files = {p.stem: json.loads(p.read_text())
+             for p in (bench / "tests" / "tiny").glob("*.json")}
+    names = [t["twin"] for t in files.values()]
+    faults = [(c, "twin named twice") for c in files
+              if names.count(files[c]["twin"]) > 1]
+    for w in manifest["workloads"]:
+        t = files.get(w["name"])
+        if t is None:
+            faults.append((w["name"], "no twin file"))
+            continue
+        cfg = layout.config(w["config"], bench)
+        if not (NAME.match(t["twin"]) and set(t) == {"twin", "config",
+                                                     "traffic"}):
+            faults.append((w["name"], "twin file's keys"))
+        elif not ({"tacotron", cfg["vocoder"]} <= set(t["config"])
+                  <= set(cfg)):
+            faults.append((w["name"], "config groups"))
+        elif not set(t["traffic"]) <= set(layout.traffic(w["traffic"],
+                                                         bench)):
+            faults.append((w["name"], "traffic keys"))
+    return faults
+
+
+def test_every_cell_has_a_twin():
+    """Each cell of BENCHMARK.json has a twin file (``tests/tiny/<cell>
+    .json``) that shrinks its configuration's ``tacotron`` and vocoder
+    groups and overrides only keys its configuration and mix have, so each
+    cell runs in the CPU tests."""
+    assert _twin_faults(BENCH) == []
 
 
 @pytest.mark.parametrize("name, leaves, numel, digest", [
@@ -287,3 +330,87 @@ def test_a_stochastic_vocoder_on_card(bench_copy, fault):
     res = R.run(layout.cell("tiny-toy", bench_copy), SEED, 0.5, False,
                 root=bench_copy)
     assert res["correct"] is (fault is None), res["checks"]
+
+
+TOY_METRIC = '''"""The frames the vocoder ran in the traced run's window,
+padding included: the program's ``vocoder.frames_run`` counter."""
+
+LAYER = "vocoder"
+UNIT = "frames"
+BETTER = "lower"
+SOURCE = "program_counter"
+MOVES = "audio_s_per_s"
+
+
+def read(obs):
+    prog = obs.get("program")
+    if not prog or not prog["window"]:
+        return None
+    return float(prog["window"][1].get("vocoder.frames_run", 0)) or None
+'''
+
+
+def test_a_configuration_joins_as_files_with_its_twin(tmp_path, twin_copy):
+    """A third configuration (the toy vocoder behind the SMA int8 model,
+    with a system adapter that has a ``_trace`` file), its cell, its twin
+    file and a metric that reads a program counter, written into a copy of
+    the benchmark as new files and ``BENCHMARK.json`` entries alone: the
+    manifest holds, every cell has a twin, and the twin's traced run on
+    the CPU is correct and reports the metric."""
+    src = tmp_path / "src"
+    shutil.copytree(BENCH, src / "t2s_bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "BENCHMARK.json", src / "BENCHMARK.json")
+    root = src / "t2s_bench"
+    before = _snapshot(root)
+    cell, cfg_name = "sma-toy.synth-b256", "t2s-sma-int8-toy"
+    (root / "vocoders" / "toy_noise.py").write_text(TOY_PART)
+    (root / "system" / "toy_noise.py").write_text(TOY_SYSTEM % None)
+    (root / "system" / "toy_noise_trace.py").write_text(
+        (root / "system" / "synthesize_trace.py").read_text())
+    (root / "reference" / "toy_noise.py").write_text(TOY_REFERENCE)
+    cfg = layout.config("t2s-sma-int8-hifigan-v1", root)
+    del cfg["hifigan"]
+    cfg.update(name=cfg_name, system="toy_noise", reference="toy_noise",
+               vocoder="toy_noise", toy_noise=dict(num_mels=80, hop=256,
+                                                   sigma=0.1))
+    (root / "configs" / f"{cfg_name}.json").write_text(json.dumps(cfg))
+    wl = dict(layout.workload("sma-v1.synth-b256", root), config=cfg_name,
+              why="the toy vocoder behind the int8 SMA model")
+    (root / "workloads" / f"{cell}.json").write_text(json.dumps(wl))
+    sma = json.loads((root / "tests" / "tiny" / "sma-v1.synth-b256.json")
+                     .read_text())
+    (root / "tests" / "tiny" / f"{cell}.json").write_text(json.dumps({
+        "twin": "tiny-toy", "traffic": sma["traffic"],
+        "config": {"tacotron": sma["config"]["tacotron"],
+                   "toy_noise": dict(num_mels=8, hop=256, sigma=0.1)}}))
+    (root / "metrics" / "vocoder_frames_run.toy.py").write_text(TOY_METRIC)
+    manifest = json.loads((src / "BENCHMARK.json").read_text())
+    manifest["configs"].append({
+        "name": cfg_name, "source": "a toy vocoder of the tests",
+        "file": f"t2s_bench/configs/{cfg_name}.json", "reduced": [],
+        "why": "a vocoder that draws noise, with the program's tracing"})
+    manifest["workloads"].append({
+        "name": cell, "config": cfg_name, "traffic": "synth-b256",
+        "chips": 1, "why": wl["why"]})
+    manifest["per_layer"].append({
+        "name": "vocoder_frames_run.toy", "unit": "frames",
+        "better": "lower", "source": "program_counter", "layer": "vocoder",
+        "moves": "audio_s_per_s", "workloads": [cell]})
+    (src / "BENCHMARK.json").write_text(json.dumps(manifest))
+    after = _snapshot(root)
+    assert all(after[p] == b for p, b in before.items())
+    assert len(after) == len(before) + 8
+    _check_manifest(src)
+    assert _twin_faults(root) == []
+
+    tiny = twin_copy(root)
+    assert layout.cell_metrics("tiny-toy", tiny) == [
+        "vocoder_frames_run.toy"]
+    res = R.run(layout.cell("tiny-toy", tiny), SEED, 0.0, True,
+                device="cpu", root=tiny)
+    assert res["correct"], res["checks"]
+    frames = res["metrics"]["vocoder_frames_run.toy"]["value"]
+    counters = res["obs"]["program"]["window"][1]
+    assert frames == counters["vocoder.frames_run"]
+    assert frames >= res["attempted"] * 8

@@ -9,7 +9,10 @@ from __future__ import annotations
 import pytest
 import torch
 
-from t2s_bench import attribution as A, layout, program_trace as PT
+import numpy as np
+
+from t2s_bench import attribution as A, judge, layout, program_trace as PT
+from t2s_bench import run as R
 from t2s_bench.frozen import xprof
 
 SEED = 2 ** 31 + 77
@@ -175,6 +178,113 @@ def test_tiny_cell_with_program_tracing(bench_copy):
                       "serve.postnet", "serve.read_lengths", "serve.vocode",
                       "serve.scale"}
     assert res["audio_s_per_s"] > 0
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny-lsa"])
+def test_traced_run_hands_readers_the_program_record(bench_copy, name):
+    """A tiny cell's traced run on the CPU gives its metric readers the
+    cell's whole configuration and the program's record of the window,
+    and reports the program's window metrics, equal to those reckoned
+    from the window's lengths; no device trace on the CPU, so no profiled
+    batch."""
+    cell = layout.cell(name, bench_copy)
+    res = R.run(cell, SEED, 0.0, True, device="cpu", root=bench_copy)
+    assert res["correct"], res["checks"]
+    obs, got = res["obs"], res["metrics"]
+    assert obs["config"] == cell["config"] and obs["trace"] is None
+    prog = obs["program"]
+    assert (prog["profiled"], prog["attribution"], prog["wall_s"]) == (
+        None, None, None)
+    assert prog["window"][1]["serve.sentences"] == res["attempted"]
+    hand = PT.by_hand(obs["batches"],
+                      cell["config"]["tacotron"]["n_frames_per_step"])
+    for k in ("decode_live_share", "vocoder_live_share"):
+        assert got[f"{k}.synth"]["value"] == pytest.approx(hand[k],
+                                                           rel=1e-12)
+    assert got["decode_host_us_per_step.synth"]["value"] > 0
+    assert not {"decode_device_us_per_step.synth",
+                "host_bound_idle_share.synth"} & set(got)
+
+
+STUB_TRACE = '''"""A stand-in for the program's tracing that logs its loading
+and each call."""
+
+LOG = %r
+
+
+def _log(what):
+    with open(LOG, "a") as f:
+        f.write(what + "\\n")
+
+
+_log("load")
+
+
+def enable():
+    _log("enable")
+
+
+def disable():
+    _log("disable")
+
+
+def take():
+    _log("take")
+    return [], {}
+'''
+
+
+@pytest.mark.parametrize("trace, stub", [(False, True), (True, True),
+                                         (True, False)])
+def test_only_a_traced_run_turns_the_programs_tracing_on(
+        bench_copy, tmp_path, trace, stub):
+    """With ``--trace 0`` the adapter's ``_trace`` file is not even
+    loaded; with ``--trace 1`` it is turned on over the window (and, on a
+    card, the profiled batch) and off after; an adapter without one gives
+    no program record and no program metrics."""
+    log = tmp_path / "trace.log"
+    path = bench_copy / "system" / "synthesize_trace.py"
+    if stub:
+        path.write_text(STUB_TRACE % str(log))
+    else:
+        path.unlink()
+    res = R.run(layout.cell("tiny", bench_copy), SEED, 0.0, trace,
+                device="cpu", root=bench_copy)
+    assert res["correct"], res["checks"]
+    prog = res["obs"]["program"]
+    if trace and stub:
+        assert log.read_text().split() == ["load", "enable", "take", "take",
+                                           "disable"]
+        assert prog["window"] == ([], {})
+    else:
+        assert not log.exists() and prog is None
+    if trace:
+        assert not set(A.METRICS) & set(res["metrics"])
+
+
+@pytest.mark.cuda
+def test_traced_tiny_cell_on_card_reads_the_program(bench_copy):
+    """On the card the traced run hands its readers the profiled batch's
+    mel lengths and the program's record of that batch, which agree; and
+    every metric of ``attribution.METRICS`` reads a value, the host-bound
+    idle at most the whole idle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    res = R.run(layout.cell("tiny", bench_copy), SEED, 0.5, True,
+                root=bench_copy)
+    assert res["correct"], res["checks"]
+    tr, prog, got = res["obs"]["trace"], res["obs"]["program"], \
+        res["metrics"]
+    assert len(tr["frames"]) == tr["batch"]
+    assert all(type(n) is int for n in tr["frames"])
+    counters = prog["profiled"][1]
+    assert counters["vocoder.frames_live"] == int(
+        judge.vocoder_frames(np.array(tr["frames"])).sum())
+    assert counters["decode.steps"] == tr["steps"]
+    assert prog["attribution"].route == "launch"
+    assert set(A.METRICS) <= set(got)
+    assert got["host_bound_idle_share.synth"]["value"] <= \
+        got["idle_share.synth"]["value"]
 
 
 @pytest.mark.cuda
