@@ -32,7 +32,8 @@ directories are not read: ``tools/orbax_to_torch.py`` converts them.
 
 ``synthesize`` is the batched serving core: pre-tokenised requests padded
 to one batch with their true lengths, decoded with per-sample gate stop and
-vocoded with HiFi-GAN.
+vocoded with HiFi-GAN, a batch of GROUP_FROM rows or more in length-sorted
+groups (``vocode_bucketed``).
 """
 
 from __future__ import annotations
@@ -63,6 +64,11 @@ MAX_WAV_VALUE = 32768.0 * 1.7  # reference inference.py:196
 MEL_FLOOR = math.log(1e-5)  # dynamic-range-compression silence floor
 MIN_FRAMES = 8  # a 1-frame mel (gate firing at once) still gives audio
 BUCKET = 64  # frames: the vocoder's input is padded to a multiple of this
+# vocode_bucketed's length-sorted groups of a served batch (``context``):
+GROUP_FROM = 64  # rows: fewer are vocoded in one call
+GROUP_ROWS = 32  # rows a group holds at least
+MAX_GROUPS = 8   # groups a batch at most
+GROUP_ALIGN = 16  # frames: a group's pad is a multiple of this
 SAMPLING_RATE = 22050
 BIAS_STRENGTH = 0.9  # HiFi-GAN bias removal, reference inference.py:202
 
@@ -88,28 +94,72 @@ def pad_requests(requests: Sequence[Request], device):
             as_t(np.asarray(t_len, np.int64)), as_t(np.asarray(s_len, np.int64)))
 
 
+def _silence_after(mel: torch.Tensor, n: torch.Tensor,
+                   pad_f: int) -> torch.Tensor:
+    """mel [B, M, >= max n] with each row's frames from n [B] (a device
+    tensor) on, and the pad up to ``pad_f`` frames, at the silence floor."""
+    m = F.pad(mel, (0, pad_f - mel.shape[-1]), value=MEL_FLOOR)
+    keep = torch.arange(pad_f, device=mel.device)[None, :] < n[:, None]
+    return torch.where(keep[:, None, :], m, torch.full_like(m, MEL_FLOOR))
+
+
 def vocode_bucketed(vocode: Vocoder, mel: torch.Tensor,
-                    n_frames: Sequence[int], hop: int) -> List[torch.Tensor]:
+                    n_frames: Sequence[int], hop: int,
+                    context: Optional[int] = None) -> List[torch.Tensor]:
     """Vocode a batch of mels [B, 80, T] with true lengths ``n_frames``:
     each mel keeps max(n, 8) frames (a 1-frame mel — the reference's
     gate-fires-on-first-frame quirk, model.py:461-467 — would leave nothing
-    after the iSTFT's edge trimming), the rest and the pad up to a multiple
-    of BUCKET frames are filled with the silence floor, and each waveform
-    is cut back to max(n, 8) * hop samples.  Counts the frames vocoded
-    (``vocoder.frames_run``) and those kept (``vocoder.frames_live``)."""
+    after the iSTFT's edge trimming), the rest and the pad are filled with
+    the silence floor, and each waveform is cut back to max(n, 8) * hop
+    samples, in request order.
+
+    Without ``context``, or for fewer than GROUP_FROM rows, one call pads
+    every row to the longest, rounded up to a multiple of BUCKET frames.
+    With it (the frames past a row's end that its kept samples read:
+    ``models.hifigan.right_context_frames``), the rows sorted by length
+    are cut into min(MAX_GROUPS, B // GROUP_ROWS) groups of near-equal
+    counts, and each group is vocoded alone, padded to its longest row plus
+    ``context``, rounded up to GROUP_ALIGN frames and at most the one
+    call's pad: every kept sample reads the frames it read in the one call.
+    The lengths and the order go to the device once, before the first
+    group.
+
+    Counts the vocoder's calls (``vocoder.calls``), the frames they ran,
+    padding included (``vocoder.frames_run``), and those kept
+    (``vocoder.frames_live``)."""
     with trace.span("serve.vocode"):
         n = [max(int(v), MIN_FRAMES) for v in n_frames]
+        B = len(n)
         pad_f = -(-max(n) // BUCKET) * BUCKET
-        if trace.enabled():
-            trace.count("vocoder.frames_run", len(n) * pad_f)
-            trace.count("vocoder.frames_live", sum(n))
-        m = mel[:, :, :max(n)]
-        m = F.pad(m, (0, pad_f - m.shape[-1]), value=MEL_FLOOR)
-        keep = (torch.arange(pad_f, device=mel.device)[None, :]
-                < torch.tensor(n, device=mel.device)[:, None])
-        m = torch.where(keep[:, None, :], m, torch.full_like(m, MEL_FLOOR))
-        wav = vocode(m)
-        return [wav[i, :n[i] * hop] for i in range(len(n))]
+        if context is None or B < GROUP_FROM:
+            if trace.enabled():
+                trace.count("vocoder.calls")
+                trace.count("vocoder.frames_run", B * pad_f)
+                trace.count("vocoder.frames_live", sum(n))
+            wav = vocode(_silence_after(
+                mel[:, :, :max(n)], torch.tensor(n, device=mel.device),
+                pad_f))
+            return [wav[i, :n[i] * hop] for i in range(B)]
+
+        order = sorted(range(B), key=n.__getitem__)
+        n_sorted = [n[i] for i in order]
+        groups = min(MAX_GROUPS, B // GROUP_ROWS)
+        cuts = [B * g // groups for g in range(groups + 1)]
+        meta = torch.tensor([order, n_sorted], device=mel.device)
+        wavs = [None] * B
+        for lo, hi in zip(cuts, cuts[1:]):
+            longest = n_sorted[hi - 1]
+            pad_g = min(-(-(longest + context) // GROUP_ALIGN) * GROUP_ALIGN,
+                        pad_f)
+            if trace.enabled():
+                trace.count("vocoder.calls")
+                trace.count("vocoder.frames_run", (hi - lo) * pad_g)
+                trace.count("vocoder.frames_live", sum(n_sorted[lo:hi]))
+            m = mel[:, :, :longest].index_select(0, meta[0, lo:hi])
+            wav = vocode(_silence_after(m, meta[1, lo:hi], pad_g))
+            for j, i in enumerate(order[lo:hi]):
+                wavs[i] = wav[j, :n[i] * hop]
+        return wavs
 
 
 @torch.inference_mode()
@@ -122,8 +172,9 @@ def synthesize(params, bn, gen_params, cfg: TacotronConfig,
     waveform per request, scaled by MAX_WAV_VALUE and clipped to the int16
     range), ``mel_postnet``, ``mel_lengths``, ``infer_ok`` and
     ``steps_run`` (decoder steps executed).  Params and ``generator`` live
-    on ``device``.  Counts the decode's row-steps (B x steps run) and those
-    up to each row's stop, from the lengths it reads anyway
+    on ``device``.  The wavs come from ``vocode_bucketed`` with the
+    generator's right context.  Counts the decode's row-steps (B x steps
+    run) and those up to each row's stop, from the lengths it reads anyway
     (``utils.trace``)."""
     device = resolve_device(device)
     with trace.span("serve.pad_requests"):
@@ -143,7 +194,8 @@ def synthesize(params, bn, gen_params, cfg: TacotronConfig,
                     sum(n // cfg.n_frames_per_step for n in lengths))
     wavs = vocode_bucketed(
         lambda m: HG.generator_apply(gen_params, h, m)[:, 0, :],
-        out["mel_postnet"], lengths, hop=cfg.hop_length)
+        out["mel_postnet"], lengths, hop=cfg.hop_length,
+        context=HG.right_context_frames(h))
     with trace.span("serve.scale"):
         out["wavs"] = [torch.clamp(w * MAX_WAV_VALUE, -32768.0, 32767.0)
                        for w in wavs]

@@ -167,6 +167,33 @@ def generator_apply(params, h: HifiganConfig, mel: torch.Tensor):
     return torch.tanh(_conv(params["conv_post"], x, padding=3))
 
 
+def right_context_frames(h: HifiganConfig) -> int:
+    """Mel frames after a row's last kept frame that its kept samples (the
+    first n * total_upsample of an n-frame row) can read through
+    ``generator_apply``: a mel cut or padded anywhere at or past frame
+    n + right_context_frames(h) gives them the same values.  Followed back
+    from the last kept sample: conv_post's and each resblock's reach at
+    its rate, each transposed convolution's padding over its stride
+    (rounded down: output o reads inputs up to (o + padding) // stride),
+    then conv_pre's 3 frames."""
+    def reach(k: int, d: int) -> int:    # right reach of a "same" conv
+        return d * (k - 1) - get_padding(k, d)
+
+    def resblock_reach(k: int, dilations) -> int:
+        # resblock "1" follows each dilated conv with an undilated one
+        second = reach(k, 1) if h.resblock == "1" else 0
+        return sum(reach(k, d) + second for d in dilations)
+
+    last = -1 + 3          # the last kept sample, R*n - 1, and conv_post
+    for u, k in reversed(list(zip(h.upsample_rates,
+                                  h.upsample_kernel_sizes))):
+        last += max(resblock_reach(kern, dil) for kern, dil in zip(
+            h.resblock_kernel_sizes, h.resblock_dilation_sizes))
+        last = (last + (k - u) // 2) // u
+    last += 3              # conv_pre: the last frame read is n + last
+    return last + 1
+
+
 def fuse_generator(params):
     """Collapse every weight-norm {v, g} into ``w`` (remove_weight_norm)."""
     return {"conv_pre": _fused(params["conv_pre"]),

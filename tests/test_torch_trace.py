@@ -173,6 +173,7 @@ def test_synthesize_records_spans_and_counts(monkeypatch, r):
         "serve.batches": 1, "serve.sentences": B,
         "decode.row_steps": B * steps,
         "decode.live_row_steps": sum(v // r for v in lengths),
-        "vocoder.frames_run": B * pad, "vocoder.frames_live": sum(n),
+        "vocoder.calls": 1, "vocoder.frames_run": B * pad,
+        "vocoder.frames_live": sum(n),
         "k1.launches": 0, "k2.launches": 0, "k3.launches": 0}
     assert rec.counters["decode.live_row_steps"] < B * steps
