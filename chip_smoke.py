@@ -8,8 +8,11 @@ the port from ``tacotron2_subword_tpu_torch/csrc`` and drives every path of
 the port at full width:
 
  - serving: K1 against its plain version (two runs bit-equal, its PTX
-   holding mma.sync, warm and cold-L2 times), 4 requests served (int8
-   decode -> postnet -> HiFi-GAN) with K1's launches counted, a profile of
+   holding mma.sync, warm and cold-L2 times), K4 (HiFi-GAN's convolution
+   epilogue) bit-equal to its plain version and timed, 4 requests served (int8
+   decode -> postnet -> HiFi-GAN) with K1's launches counted, one served
+   V1 group (32 x 880 frames, TF32 allowed) on the channels-last path
+   against the generator path with K4's launches counted, a profile of
    the decode loop (no split-K reduce kernel), the served decode as CUDA
    graph replays bit-equal to the eager loop (``phase_decode_graph``,
    K1 counted), the f32 decode on the card
@@ -240,6 +243,158 @@ def phase_k1(Q, dev):
         rows.append(row)
         print("K1", json.dumps(row))
     return rows
+
+
+# V1's largest stage in a served group: the last stage of 32 rows x 880
+# frames (x 256 samples a frame), 32 channels
+K4_STAGE = (32 * 880 * 256, 32)
+
+
+def phase_conv_epilogue(EP, dev):
+    """K4 (HiFi-GAN's channels-last convolution epilogue) against its plain
+    version in each mode the generator uses, at 16-byte (C % 4 == 0) and
+    4-byte (ragged C) accesses: bit-equal (the same f32 operations in the
+    same order), one launch a call.  Then, at V1's largest stage shape
+    (``K4_STAGE``, where the grid-stride loop makes about 54 turns), in
+    the resblocks' two commonest modes: bit-equal again, and its time
+    beside its HBM-byte bound (each tensor it reads or writes once) and
+    the plain version's time.  The operands (0.9 GB each) do not fit in
+    L2."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # mode -> (the operands it reads besides y, the outputs it writes,
+    # further arguments)
+    modes = {"residual": (("residual",), ("out_pre", "out_act"), {}),
+             "mrf_add": (("residual", "mrf_sum"), ("out_pre",), {}),
+             "mrf_average": (("residual", "mrf_sum"), ("out_act",),
+                             {"mrf_div": 3}),
+             "lrelu_0.01": ((), ("out_act",), {"slope": 0.01}),
+             "tanh": ((), ("out_act",), {"act": "tanh"})}
+
+    def args(mode, y, r, s):
+        reads, writes, extra = modes[mode]
+        given = {"residual": r, "mrf_sum": s}
+        return {**{k: given[k] for k in reads},
+                **{k: torch.empty_like(y) for k in writes}, **extra}
+    for R, C in ((4096, 32), (999, 13), (7, 1)):
+        y, r, s = (torch.randn((R, C), generator=gen, device=dev) * 3
+                   for _ in range(3))
+        b = torch.randn((C,), generator=gen, device=dev)
+        for mode, (_, writes, _) in modes.items():
+            kw, kw_plain = args(mode, y, r, s), args(mode, y, r, s)
+            before = EP.launches
+            EP.conv_epilogue(y, b, **kw)
+            EP.conv_epilogue_plain(y, b, **kw_plain)
+            torch.cuda.synchronize()
+            if EP.launches != before + 1 or not all(
+                    torch.equal(kw[k], kw_plain[k]) for k in writes):
+                raise AssertionError(f"K4 disagrees with its plain version "
+                                     f"at R={R} C={C} {mode}")
+    R, C = K4_STAGE
+    y, r, s = (torch.randn((R, C), generator=gen, device=dev)
+               for _ in range(3))
+    b = torch.randn((C,), generator=gen, device=dev)
+    rows = []
+    for mode in ("residual", "mrf_average"):
+        kw, kw_plain = args(mode, y, r, s), args(mode, y, r, s)
+        EP.conv_epilogue(y, b, **kw)
+        EP.conv_epilogue_plain(y, b, **kw_plain)
+        torch.cuda.synchronize()
+        if not all(torch.equal(kw[k], kw_plain[k]) for k in modes[mode][1]):
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"R={R} C={C} {mode}")
+        del kw_plain
+        tensors = 1 + len(modes[mode][0]) + len(modes[mode][1])
+        row = {"R": R, "C": C, "mode": mode, "tensors": tensors,
+               "ms": device_ms(lambda: EP.conv_epilogue(y, b, **kw), 10),
+               "plain_ms": device_ms(
+                   lambda: EP.conv_epilogue_plain(y, b, **kw), 10),
+               "bound_ms": (tensors * R * C + C) * 4 / HBM_BW * 1e3,
+               "bound_by": "bytes"}
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print("K4", json.dumps(row))
+        del kw
+    return rows
+
+
+# a served group of the sma cell: 32 rows x 880 frames at V1's widths
+SERVED_GROUP = (32, 880)
+
+
+def phase_served_vocoder(EP, HG, dev):
+    """The vocoder as ``synthesize`` serves it, and as the benchmark runs
+    it: V1 at its published widths and torch's default weight scale, one
+    ``SERVED_GROUP`` mel, under ``inference_mode`` with cuDNN's TF32
+    allowed (torch's default; the rest of the smoke runs strict f32), so
+    ``generator_apply`` takes the channels-last path.  K4's launches are
+    counted from 0 over that one call (after a warm-up call): one a
+    convolution.  Held against the generator path (autograd on, no
+    parameter asks for a gradient; TF32 allowed too): the benchmark's
+    wav_gap (the largest RMS over 256-sample windows, of full scale) <=
+    7e-5, the sma cell's limit, and max|d| <= 5e-3 * max|ref| (an H100
+    read 1.7e-5 and 6.0e-4); a wrong slope or MRF divisor in an epilogue
+    reads well above either.  Returns {launches,
+    n_convs, wav_gap, max_rel, served_ms, generator_ms}."""
+    import math
+    from tacotron2_subword_tpu_torch.apps.inference import MAX_WAV_VALUE
+    h = HG.HifiganConfig()
+    g = torch.Generator().manual_seed(21)
+
+    def draw(p):
+        bound = 1.0 / math.sqrt(p["w"].shape[1] * p["w"].shape[2])
+        u = lambda t: ((torch.rand(t.shape, generator=g) * 2 - 1)
+                       * bound).to(dev)
+        return {"w": u(p["w"]), "b": u(p["b"])}
+    tree = HG.fuse_generator(HG.init_generator(g, h, device="cpu"))
+    params = {"conv_pre": draw(tree["conv_pre"]),
+              "conv_post": draw(tree["conv_post"]),
+              "ups": [draw(p) for p in tree["ups"]],
+              "resblocks": [{k: [draw(c) for c in v] for k, v in rb.items()}
+                            for rb in tree["resblocks"]]}
+    B, T = SERVED_GROUP
+    mel = (torch.randn((B, h.num_mels, T), generator=g) * 2.0 - 5.0).to(dev)
+    n_convs = 2 + len(h.upsample_rates) * (1 + 2 * sum(
+        len(d) for d in h.resblock_dilation_sizes))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.enable_grad():
+            HG.generator_apply(params, h, mel)      # warm-up: cuDNN plans
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = HG.generator_apply(params, h, mel)
+            torch.cuda.synchronize()
+            generator_ms = (time.perf_counter() - t0) * 1e3
+        with torch.inference_mode():
+            HG.generator_apply(params, h, mel)
+            torch.cuda.synchronize()
+            EP.launches = 0
+            t0 = time.perf_counter()
+            got = HG.generator_apply(params, h, mel)
+            torch.cuda.synchronize()
+            served_ms = (time.perf_counter() - t0) * 1e3
+            launches = EP.launches
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if launches != n_convs:
+        raise AssertionError(f"served V1 group: K4 launched {launches} "
+                             f"times for {n_convs} convolutions")
+    if got.shape != ref.shape:
+        raise AssertionError(f"served V1 group: {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}")
+    d = (got - ref).double()
+    wav_gap = (d.reshape(B, -1, 256).pow(2).mean(-1).sqrt().max().item()
+               * MAX_WAV_VALUE / 32768.0)
+    max_rel = d.abs().max().item() / ref.abs().max().item()
+    row = {"launches": launches, "n_convs": n_convs, "wav_gap": wav_gap,
+           "max_rel": max_rel, "served_ms": served_ms,
+           "generator_ms": generator_ms}
+    print("served vocoder", json.dumps(row), flush=True)
+    if not (wav_gap <= 7e-5 and max_rel <= 5e-3):
+        raise AssertionError(f"served V1 group against the generator path: "
+                             f"wav_gap {wav_gap} (limit 7e-5), max|d| / "
+                             f"max|ref| {max_rel} (limit 5e-3)")
+    return row
 
 
 def k1_split_sweep(Q, dev):
@@ -3936,6 +4091,7 @@ def main() -> int:
     from tacotron2_subword_tpu_torch import train_lib as TT
     from tacotron2_subword_tpu_torch.nn import layers as L
     from tacotron2_subword_tpu_torch.ops import _build
+    from tacotron2_subword_tpu_torch.ops import conv_epilogue as EP
     from tacotron2_subword_tpu_torch.ops import quant as Q
     from tacotron2_subword_tpu_torch.ops import softdtw as SD
     from tacotron2_subword_tpu_torch.utils.tree import to_device
@@ -3999,6 +4155,7 @@ def main() -> int:
 
     # 2. each kernel against its plain version
     k1_rows = phase_k1(Q, dev)
+    k4_rows = phase_conv_epilogue(EP, dev)
     mark("k1")
 
     # 3. the main path at full width, launches counted
@@ -4010,6 +4167,7 @@ def main() -> int:
     params, bn = to_device(params_cpu, dev), to_device(bn_cpu, dev)
     launches = phase_serve(Q, TM, TI, params, bn, gen_params, cfg, h, dev,
                            gpu)
+    served_vocoder = phase_served_vocoder(EP, HG, dev)
     profile_rows = phase_profile(TM, TI, params, bn, cfg, dev)
     mark("serve_profile")
     decode_graph = phase_decode_graph(Q, TM, TI, params, bn, gen_params, cfg,
@@ -4208,7 +4366,15 @@ def main() -> int:
                 "k3_plain_wall_ms")} for r in sdtw_rows
                 if (r["B"], r["N"], r["M"]) in SDTW_SMALL]
         sdtw.append(entry)
-    print(json.dumps({"kernels": [k1] + sdtw}))
+    k4 = {"name": "conv_epilogue", "route": "cuda",
+          "source": "tacotron2_subword_tpu_torch/csrc/conv_epilogue.cu",
+          "replaces": None, "launches": served_vocoder["launches"],
+          "launches_per": (f"one served V1 group, {SERVED_GROUP[0]} rows x "
+                           f"{SERVED_GROUP[1]} frames, TF32 allowed"),
+          "served_vocoder": served_vocoder,
+          "per": (f"one call at V1's largest served stage, {K4_STAGE[0]} "
+                  f"rows x {K4_STAGE[1]} channels"), "rows": k4_rows}
+    print(json.dumps({"kernels": [k1] + sdtw + [k4]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

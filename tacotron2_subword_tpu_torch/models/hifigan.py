@@ -13,7 +13,9 @@ serving.  ``HifiganConfig.from_json`` reads the reference's config JSON,
 ``import_torch_generator`` its ``{'generator': state_dict}`` checkpoints
 and ``export_torch_generator`` writes one.  The convolutions are torch's
 F.conv1d / F.conv2d / F.conv_transpose1d, as the JAX package leaves them to
-XLA's convolutions.
+XLA's convolutions.  Served on the card (autograd off), the generator keeps
+its activations channels-last and ends each convolution with one pass of
+the hand-written epilogue K4 (``ops/conv_epilogue.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from tacotron2_subword_tpu_torch.nn import layers as L
+from tacotron2_subword_tpu_torch.ops import conv_epilogue as EP
 from tacotron2_subword_tpu_torch.utils.platform import resolve_device
 from tacotron2_subword_tpu_torch.utils.tree import to_device
 
@@ -150,7 +153,16 @@ def _resblock_apply(p, h: HifiganConfig, x, dilations):
 
 
 def generator_apply(params, h: HifiganConfig, mel: torch.Tensor):
-    """mel [B, 80, T] -> waveform [B, 1, T * prod(upsample_rates)]."""
+    """mel [B, 80, T] -> waveform [B, 1, T * prod(upsample_rates)].
+
+    A CUDA mel with autograd off (serving, under ``inference_mode``) takes
+    ``_generator_apply_channels_last``; every other call (the CPU,
+    training) the code below.  Served in strict f32 (cuDNN's TF32 off, not
+    torch's default), cuDNN's f32 channels-last kernels ran V1 about 8x
+    slower than its NCHW ones on an H100 (1 x 256 frames: 53 against
+    6.8 ms)."""
+    if mel.is_cuda and not torch.is_grad_enabled():
+        return _generator_apply_channels_last(params, h, mel)
     x = _conv(params["conv_pre"], mel, padding=3)
     nk = len(h.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(h.upsample_rates,
@@ -165,6 +177,116 @@ def generator_apply(params, h: HifiganConfig, mel: torch.Tensor):
         x = xs / nk
     x = F.leaky_relu(x)  # default slope 0.01, as the reference
     return torch.tanh(_conv(params["conv_post"], x, padding=3))
+
+
+def _conv_cl(p, x, dilation: int = 1, padding=None):
+    """A fused conv's convolution without its bias on a channels-last
+    [B, C, 1, T] activation: cuDNN reads and writes NHWC, no transposes."""
+    w = p["w"]
+    if padding is None:
+        padding = get_padding(w.shape[-1], dilation)
+    w = w.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+    return F.conv2d(x, w, None, padding=(0, padding), dilation=(1, dilation))
+
+
+def _convt_cl(p, x, stride: int, padding: int):
+    w = p["w"].unsqueeze(2).contiguous(memory_format=torch.channels_last)
+    return F.conv_transpose2d(x, w, None, stride=(1, stride),
+                              padding=(0, padding))
+
+
+def _rows(t):
+    """A channels-last [B, C, 1, T] tensor as its [B * T, C] rows (a view:
+    raises if ``t`` is not channels-last)."""
+    return None if t is None else t.permute(0, 2, 3, 1).view(-1, t.shape[1])
+
+
+def _epilogue(y, p, *, residual=None, mrf_sum=None, mrf_div=0, out_pre=None,
+              out_act=None, act="lrelu", slope=LRELU_SLOPE):
+    """``ops.conv_epilogue`` on channels-last tensors, with p's bias."""
+    EP.conv_epilogue(_rows(y), p["b"], residual=_rows(residual),
+                     mrf_sum=_rows(mrf_sum), mrf_div=mrf_div,
+                     out_pre=_rows(out_pre), out_act=_rows(out_act), act=act,
+                     slope=slope)
+
+
+def _generator_apply_channels_last(params, h: HifiganConfig,
+                                   mel: torch.Tensor):
+    """``generator_apply`` with the activations held channels-last,
+    [B, C, 1, T] (physically [B, T, C]), from conv_pre's input to
+    conv_post's output: each convolution is cuDNN's, without its bias, and
+    one ``ops.conv_epilogue`` pass after it adds the bias, the residual and
+    the MRF sum and average, and writes the pre-activation where a later
+    add reads it and the activation where the next convolution reads it.
+    The f32 operations are ``generator_apply``'s, in its order; only the
+    convolutions' algorithms differ, and conv_post runs with TF32 off.
+    Weight-normed trees are fused per call, and the weights' channels-last
+    copies are made per call.
+
+    For conv_post, cuDNN's process-wide ``allow_tf32`` is set off and then
+    back: the serving path assumes one thread drives the card, as
+    ``synthesize`` does.  A convolution another thread runs meanwhile runs
+    in strict f32, and a change another thread makes to the switch
+    meanwhile is undone."""
+    B = mel.shape[0]
+    nk = len(h.resblock_kernel_sizes)
+    stages = len(h.upsample_rates)
+    p = _fused(params["conv_pre"])
+    y = _conv_cl(p, mel.unsqueeze(2).contiguous(
+        memory_format=torch.channels_last), padding=3)
+    _epilogue(y, p, out_act=y)
+    act = y                            # leaky_relu(conv_pre(mel))
+    for i, (u, k) in enumerate(zip(h.upsample_rates,
+                                   h.upsample_kernel_sizes)):
+        p = _fused(params["ups"][i])
+        x = _convt_cl(p, act, stride=u, padding=(k - u) // 2)
+        x_act = torch.empty_like(x)
+        _epilogue(x, p, out_pre=x, out_act=x_act)
+        # the stage's average feeds the next stage's leaky_relu, or the
+        # default-slope one before conv_post, as in generator_apply
+        slope_out = LRELU_SLOPE if i + 1 < stages else 0.01
+        mrf = None
+        for j in range(nk):
+            rb = params["resblocks"][i * nk + j]
+            dils = h.resblock_dilation_sizes[j]
+            if h.resblock == "1":
+                pairs = list(zip(rb["convs1"], rb["convs2"], dils))
+            else:
+                pairs = [(None, c, d) for c, d in zip(rb["convs"], dils)]
+            pre, a = x, x_act
+            for m, (c1, c2, d) in enumerate(pairs):
+                if c1 is not None:     # resblock "1": the dilated conv
+                    p1 = _fused(c1)
+                    a = _conv_cl(p1, a, dilation=d)
+                    _epilogue(a, p1, out_act=a)
+                    d = 1
+                p2 = _fused(c2)
+                y = _conv_cl(p2, a, dilation=d)
+                if m + 1 < len(pairs):
+                    a = torch.empty_like(y)
+                    _epilogue(y, p2, residual=pre, out_pre=y, out_act=a)
+                    pre = y
+                elif j + 1 < nk:       # into the MRF sum
+                    _epilogue(y, p2, residual=pre, mrf_sum=mrf,
+                              out_pre=y if mrf is None else mrf)
+                    if mrf is None:
+                        mrf = y
+                else:                  # the last resblock: the average
+                    _epilogue(y, p2, residual=pre, mrf_sum=mrf, mrf_div=nk,
+                              out_act=y, slope=slope_out)
+                    act = y
+    # conv_post in full f32: its rounding reaches the wav unaveraged.  In
+    # TF32, V2's served wavs moved up to 9.4e-5 of full scale from the f32
+    # reference (8 seeds; the generator path 1.4e-5), in f32 up to 2.4e-5
+    p = _fused(params["conv_post"])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = _conv_cl(p, act, padding=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    _epilogue(y, p, out_act=y, act="tanh")
+    return y.view(B, 1, -1)
 
 
 def right_context_frames(h: HifiganConfig) -> int:

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_kbuild"
-KERNELS = ("dequant_int8_matmul", "softdtw")
+KERNELS = ("dequant_int8_matmul", "softdtw", "conv_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,12 +6,16 @@ also runs on a machine with a card and without JAX:
 The tests marked ``cuda`` build and launch the CUDA kernels and skip where
 there is no CUDA device."""
 
+import math
 import shutil
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from tacotron2_subword_tpu_torch.models import hifigan as HG
+from tacotron2_subword_tpu_torch.ops import conv_epilogue as TE
 from tacotron2_subword_tpu_torch.ops import quant as TQ
 from tacotron2_subword_tpu_torch.ops import softdtw as TS
 
@@ -316,3 +320,239 @@ def test_k3_bit_equal_on_card(cuda_device, shape, bw, warps, gamma):
     lib = TS._lib()
     assert lib.t2s_softdtw_fwd_smem_bytes(
         M, plan.warps, int(plan.scratch_floats == 0)) == plan.smem_bytes
+
+
+# ---- K4, the channels-last convolutions' epilogue -------------------------
+
+# each mode: the epilogue's arguments (by which operands it reads and
+# writes) and the generator path's own ops on the same tensors
+EPI_MODES = {
+    "bias": (dict(out_pre="new"), lambda y, b, r, s: (y + b, None)),
+    "lrelu-in-place": (dict(out_act="y"),
+                       lambda y, b, r, s: (None, F.leaky_relu(y + b, 0.1))),
+    "residual": (dict(residual=True, out_pre="y", out_act="new"),
+                 lambda y, b, r, s: ((y + b) + r,
+                                     F.leaky_relu((y + b) + r, 0.1))),
+    "mrf-add": (dict(residual=True, mrf_sum=True, out_pre="mrf_sum"),
+                lambda y, b, r, s: (s + ((y + b) + r), None)),
+    "mrf-average": (dict(residual=True, mrf_sum=True, mrf_div=3,
+                         out_act="y"),
+                    lambda y, b, r, s: (None, F.leaky_relu(
+                        (s + ((y + b) + r)) / 3, 0.1))),
+    "mrf-average-0.01": (dict(residual=True, mrf_sum=True, mrf_div=3,
+                              out_act="new", slope=0.01),
+                         lambda y, b, r, s: (None, F.leaky_relu(
+                             (s + ((y + b) + r)) / 3, 0.01))),
+    "average-of-one": (dict(residual=True, mrf_div=1, out_act="y"),
+                       lambda y, b, r, s: (None, F.leaky_relu(
+                           ((y + b) + r) / 1, 0.1))),
+    "tanh": (dict(out_act="y", act="tanh"),
+             lambda y, b, r, s: (None, torch.tanh(y + b))),
+}
+
+
+def _epi_run(fn, mode, R, C, device, offset=0, bias_offset=0, seed=0,
+             dtype=torch.float32):
+    """Run ``fn`` (the wrapper or the plain version) in ``mode`` on fresh
+    seeded [R, C] inputs (``offset`` floats into their buffers, to take
+    the 4-byte path; the bias ``bias_offset`` floats into its own, as a
+    served generator's leaves lie in one buffer); returns (out_pre,
+    out_act, the generator's ops)."""
+    kw, ops = EPI_MODES[mode]
+    g = torch.Generator().manual_seed(seed)
+
+    def rows():
+        buf = torch.randn(R * C + offset, generator=g) * 3
+        return buf.to(device, dtype)[offset:].view(R, C)
+    y, r, s = rows(), rows(), rows()
+    b = (torch.randn(C + bias_offset, generator=g) * 0.5).to(
+        device, dtype)[bias_offset:]
+    ref = ops(y.clone(), b, r, s.clone())
+    where = {None: None, "y": y, "mrf_sum": s}
+    pre, act = (torch.empty_like(y) if kw.get(k) == "new"
+                else where[kw.get(k)] for k in ("out_pre", "out_act"))
+    fn(y, b, residual=r if kw.get("residual") else None,
+       mrf_sum=s if kw.get("mrf_sum") else None,
+       mrf_div=kw.get("mrf_div", 0), out_pre=pre, out_act=act,
+       act=kw.get("act", "lrelu"), slope=kw.get("slope", 0.1))
+    return pre, act, ref
+
+
+EPI_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", EPI_DTYPES)
+@pytest.mark.parametrize("mode", list(EPI_MODES))
+def test_epilogue_plain_is_the_generators_ops(mode, dtype):
+    """The plain version (what the wrapper runs on the CPU) is the
+    generator path's ops, bit for bit, in place where its outputs alias
+    its inputs."""
+    pre, act, (ref_pre, ref_act) = _epi_run(TE.conv_epilogue, mode, 37, 12,
+                                            "cpu", dtype=dtype)
+    for got, ref in ((pre, ref_pre), (act, ref_act)):
+        assert (got is None) == (ref is None)
+        if ref is not None:
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("bad", ["act", "no_output", "rows", "bias",
+                                 "dtype", "mixed_dtypes", "div"])
+def test_epilogue_rejects_bad_arguments(bad):
+    y, b = torch.zeros(6, 4), torch.zeros(4)
+    kw = dict(out_act=torch.empty(6, 4))
+    if bad == "act":
+        kw["act"] = "relu"
+    elif bad == "no_output":
+        kw = {}
+    elif bad == "rows":
+        kw["residual"] = torch.zeros(5, 4)
+    elif bad == "bias":
+        b = torch.zeros(3)
+    elif bad == "dtype":
+        y, b = y.double(), b.double()
+    elif bad == "mixed_dtypes":
+        b = b.bfloat16()
+    else:
+        kw["mrf_div"] = -1
+    with pytest.raises((TypeError, ValueError)):
+        TE.conv_epilogue(y, b, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", EPI_DTYPES + [torch.float16])
+@pytest.mark.parametrize("mode", list(EPI_MODES))
+@pytest.mark.parametrize("R,C,offset,bias_offset", [
+    (4096, 32, 0, 0), (1000, 256, 0, 3), (999, 13, 0, 0), (7, 1, 0, 0),
+    (333, 12, 1, 0), (1, 5, 0, 0)])
+def test_epilogue_bit_equal_on_card(cuda_device, mode, R, C, offset,
+                                    bias_offset, dtype):
+    """K4 against its plain version in every mode and dtype, at 4-channel
+    (C % 4 == 0, rows aligned, the bias aligned or not) and 1-channel
+    (ragged C, or misaligned rows) accesses: bit-equal, since both make
+    the same f32 operations in the same order and round each to the dtype;
+    one launch per call."""
+    before = TE.launches
+    got = _epi_run(TE.conv_epilogue, mode, R, C, cuda_device, offset,
+                   bias_offset, dtype=dtype)
+    want = _epi_run(TE.conv_epilogue_plain, mode, R, C, cuda_device, offset,
+                    bias_offset, dtype=dtype)
+    torch.cuda.synchronize()
+    assert TE.launches == before + 1
+    for a, b in zip(got[:2], want[:2]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    for a, b in zip(got[:2], got[2]):  # and the generator path's own ops
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+def _default_scale_generator(h, seed, device):
+    """A fused generator with every weight and bias U(+-1/sqrt(fan_in)),
+    torch's default scale and the benchmark's."""
+    g = torch.Generator().manual_seed(seed)
+    tree = HG.fuse_generator(HG.init_generator(g, h, device="cpu"))
+
+    def draw(p):
+        bound = 1.0 / math.sqrt(p["w"].shape[1] * p["w"].shape[2])
+        u = lambda t: ((torch.rand(t.shape, generator=g) * 2 - 1)
+                       * bound).to(device)
+        return {"w": u(p["w"]), "b": u(p["b"])}
+    return {"conv_pre": draw(tree["conv_pre"]),
+            "conv_post": draw(tree["conv_post"]),
+            "ups": [draw(p) for p in tree["ups"]],
+            "resblocks": [{k: [draw(c) for c in v] for k, v in rb.items()}
+                          for rb in tree["resblocks"]]}
+
+
+HIFIGAN_WIDTHS = {"v1": HG.HifiganConfig(),
+                  "v2": HG.HifiganConfig(upsample_initial_channel=128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", list(HIFIGAN_WIDTHS))
+def test_generator_channels_last_on_card(cuda_device, version):
+    """The channels-last path (K4 after every convolution) against the
+    generator's own path (autograd on; no parameter asks for a gradient)
+    at V1's and V2's published widths and a served group's shape, 32 rows
+    x 880 frames; ``generator_apply`` with autograd off takes the
+    channels-last path whatever cuDNN's TF32 switch reads.  With TF32 off
+    both are f32 and differ only in the order of the convolutions' sums:
+    max|d| <= 1e-5 * max|ref|.  With TF32 on, as served, the benchmark's
+    wav_gap between them must stay under the sma cell's limit (7e-5 of
+    full scale).  The channels-last call's trace holds K4, and
+    cuDNN's layout transposes no longer wrap the convolutions: the
+    generator path makes two or more a convolution (176 at V1's widths),
+    this one at most one for ten convolutions (where cuDNN's heuristics
+    still pick an NCHW-output kernel for a shape)."""
+    from tacotron2_subword_tpu_torch.apps.inference import MAX_WAV_VALUE
+    h = HIFIGAN_WIDTHS[version]
+    params = _default_scale_generator(h, seed=12, device=cuda_device)
+    mel = (torch.randn((32, 80, 880), generator=torch.Generator()
+                       .manual_seed(13)) * 2.0 - 5.0).to(cuda_device)
+    n_convs = 2 + len(h.upsample_rates) * (1 + 2 * sum(
+        len(d) for d in h.resblock_dilation_sizes))
+    tf32 = torch.backends.cudnn.allow_tf32
+    gaps = {}
+    try:
+        for allow in (False, True):
+            torch.backends.cudnn.allow_tf32 = allow
+            with torch.enable_grad():
+                ref = HG.generator_apply(params, h, mel)
+            before = TE.launches
+            with torch.inference_mode():
+                got = HG.generator_apply(params, h, mel)
+            torch.cuda.synchronize()
+            assert TE.launches == before + n_convs
+            assert got.shape == ref.shape and got.is_contiguous()
+            d = (got - ref).double()
+            rms = d.reshape(32, -1, 256).pow(2).mean(-1).sqrt().max().item()
+            gaps[allow] = (d.abs().max().item() / ref.abs().max().item(),
+                           rms * MAX_WAV_VALUE / 32768.0)
+            del ref, got, d
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            HG.generator_apply(params, h, mel)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    transposes = sum(c for n, c in counts.items()
+                     if "nchwToNhwc" in n or "nhwcToNchw" in n)
+    print(f"{version}: channels-last vs generator path, max|d| / max|ref| "
+          f"and wav_gap: TF32 off {gaps[False]}, TF32 on {gaps[True]}; "
+          f"{transposes} cuDNN layout transposes in {n_convs} convolutions")
+    assert gaps[False][0] <= 1e-5
+    assert gaps[True][1] <= 7e-5
+    assert sum(c for n, c in counts.items()
+               if "conv_epilogue_kernel" in n) == n_convs
+    assert transposes <= n_convs // 10
+
+
+@pytest.mark.cuda
+def test_generator_channels_last_bf16_on_card(cuda_device):
+    """The channels-last path in bf16 (weights and mel, as ``bench.
+    run_vocoders`` serves it) against the generator path in bf16 at V1's
+    widths, 4 rows x 256 frames: both round every op to bf16, in other
+    places inside the convolutions, so max|d| <= 0.05 * max|ref| (a few
+    bf16 steps at full scale): a wrong layout or order reads O(1)."""
+    from tacotron2_subword_tpu_torch.utils.tree import cast_floats
+    h = HIFIGAN_WIDTHS["v1"]
+    params = cast_floats(_default_scale_generator(h, seed=14,
+                                                  device=cuda_device),
+                         torch.bfloat16)
+    mel = (torch.randn((4, 80, 256), generator=torch.Generator()
+                       .manual_seed(15)) * 2.0 - 5.0).to(cuda_device,
+                                                         torch.bfloat16)
+    with torch.enable_grad():
+        ref = HG.generator_apply(params, h, mel)
+    with torch.inference_mode():
+        got = HG.generator_apply(params, h, mel)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.bfloat16
+    gap = ((got.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    print(f"v1 bf16: channels-last vs generator path, max|d| / max|ref| "
+          f"{gap}")
+    assert gap <= 0.05
